@@ -1,0 +1,111 @@
+"""zkvm_tpu_torch.ops.msm against the host MSM and the JAX pipeline.
+
+The port adds points in another order than zkvm_tpu (a log-depth scan),
+so MSM results are compared as group elements: against
+`curves.msm.msm_variable_base` and, for the halving tree, against the JAX
+`_msm_ptree_pipeline` + `_host_window_fold` on the same numpy-seeded
+inputs.  Signed digits are integers and must match exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from zkvm_tpu.curves.g1 import G1Projective
+from zkvm_tpu.curves.msm import msm_variable_base
+from zkvm_tpu.fields import Fr
+from zkvm_tpu.ops import limb_field as rlf
+from zkvm_tpu.ops import msm as rmsm
+from zkvm_tpu_torch.ops import limb_field as lf
+from zkvm_tpu_torch.ops import msm
+
+torch.set_num_threads(1)
+
+
+def _points(n, seed):
+    """n affine points A + i*S for numpy-seeded multiples A, S of G."""
+    rng = np.random.default_rng(seed)
+    g = G1Projective.generator()
+    a = g * int(rng.integers(1, 1 << 62))
+    s = g * int(rng.integers(1, 1 << 62))
+    out = []
+    for _ in range(n):
+        out.append(a)
+        a = a + s
+    return G1Projective.batch_normalize(out)
+
+
+def _scalars(n, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.uint64).tolist()
+    return [Fr(sum(int(w) << (63 * k) for k, w in enumerate(row)))
+            for row in words]
+
+
+def _adversarial(scalars):
+    """Zero, one, duplicates, p - 1 and lone high bits mixed in."""
+    out = list(scalars)
+    out[:9] = [Fr.zero(), Fr.one(), Fr.one(), Fr(2), out[20],
+               Fr(Fr.MODULUS - 1), Fr(1 << 200), Fr(513), Fr(1 << 255)]
+    return out
+
+
+@pytest.mark.parametrize("c", [8, 10, 11, 12])
+def test_signed_digits_match_reference(c):
+    vals = [s.value for s in _adversarial(_scalars(300, c))]
+    ref_limbs = np.asarray(rlf.FR.to_raw_array(vals)).reshape(16, 3, 100)
+    ref_limbs = np.ascontiguousarray(ref_limbs.transpose(1, 0, 2))
+    want = np.asarray(rmsm._signed_digit_tensors(ref_limbs, c))
+    got = msm._signed_digit_tensors(
+        lf.from_reference(ref_limbs, lf.FR, "cpu"), c)
+    assert got.dtype == torch.int32
+    assert (got.numpy() == want).all()
+
+
+def test_scan_path_matches_host():
+    """MSMContext.msm below PTREE_MIN_POINTS: the prefix-scan pipeline,
+    with a point at infinity and a duplicate point."""
+    n = 1000
+    points = _points(n, 1)
+    points[10] = points[11]
+    points[12] = -points[13]
+    scalars = _adversarial(_scalars(n, 2))
+    ctx = msm.MSMContext(points, "cpu")
+    assert ctx.msm(scalars) == msm_variable_base(points, scalars)
+
+
+def test_ptree_pipeline_forced_matches_jax_and_host():
+    """The halving tree forced at n = 2048, c = 10 (half = 512, two levels,
+    reject compaction and the scan tail), as the reference's own test."""
+    n, c = 2048, 10
+    points = _points(n, 3)
+    points[5] = points[4]  # doubling inside a bucket
+    scalars = _adversarial(_scalars(n, 4))
+    scalars[4] = scalars[5]
+
+    ctx = msm.MSMContext(points, "cpu")
+    pm, pinf = ctx._padded(n)
+    limbs = lf.FR.to_raw_array([s.value for s in scalars], "cpu")[None]
+    sums = msm._msm_ptree_pipeline(c, pm, pinf, limbs)
+    got = msm._fold_windows(sums, c, 1, [n])[0]
+
+    rctx = rmsm.MSMContext(points)
+    _, rpinf, rpm = rctx._padded(n)
+    rlimbs = rlf.FR.to_raw_array([s.value for s in scalars])[None]
+    rsums = rmsm._msm_ptree_pipeline(c, rpm, rpinf, rlimbs)
+    host = [np.asarray(t) for t in jax.device_get(rsums)]
+    want = rmsm._host_window_fold(host, c, host[0].shape[0], 1, [n])[0]
+    assert got == want
+    assert got == msm_variable_base(points, scalars)
+
+
+def test_multi_set_prefixes_match_host():
+    """msm_many over prefixes of one point set (the commit_many shape),
+    including an empty set."""
+    points = _points(300, 5)
+    sets = [_scalars(k, 6 + k) for k in (300, 211, 77)] + [[]]
+    got = msm.MSMContext(points, "cpu").msm_many(sets)
+    for g, s in zip(got, sets):
+        assert g == msm_variable_base(points[:len(s)], s)

@@ -1,0 +1,84 @@
+"""zkvm_tpu_torch runs without JAX and hides no device fallback.
+
+The GPU machine has no JAX, so the port may import only the jax-free host
+modules of zkvm_tpu; a subprocess with `jax` blocked runs a tiny setup and
+commit and must print the reference's commitment bytes.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from zkvm_tpu.fields import Fr
+from zkvm_tpu.plonk import kzg10 as rkzg
+from zkvm_tpu.plonk.polynomial import Polynomial
+from zkvm_tpu.rng import StdRng
+from zkvm_tpu_torch.ops import kernels
+from zkvm_tpu_torch.ops.limb_field import FR
+from zkvm_tpu_torch.plonk import kzg10
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    p for p in (ROOT / "zkvm_tpu_torch").rglob("*.py")
+    if "build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py"]
+
+_SLICE = """
+import sys
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from zkvm_tpu.fields import Fr
+from zkvm_tpu.rng import StdRng
+from zkvm_tpu_torch.plonk.kzg10 import PublicParameters
+pp = PublicParameters.setup(4, StdRng(3), "cpu")
+c = pp.commit_key.commit([Fr(i + 1) for i in range(5)])
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print(c.to_bytes().hex())
+"""
+
+
+def test_slice_runs_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    ref = rkzg.PublicParameters.setup(4, StdRng(3)).commit_key.commit(
+        Polynomial([Fr(i + 1) for i in range(5)]))
+    assert out.stdout.strip() == ref.to_bytes().hex()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_source_imports_no_jax(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    # modules of the reference that import jax
+    assert not re.search(
+        r"^\s*(import|from)\s+zkvm_tpu\.(ops|plonk|merkle|utils|service|"
+        r"hashes)\b", text, re.M)
+
+
+def test_cuda_request_without_cuda_raises():
+    """Asking for the card where there is none fails; nothing runs on the
+    CPU in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        kzg10.PublicParameters.setup(2, StdRng(1), "cuda")
+
+
+def test_kernel_wrappers_refuse_other_devices_and_layouts():
+    meta = torch.zeros((8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kernels.mont_mul(FR, meta, meta)
+    cpu = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kernels.mont_mul(FR, cpu.to(torch.int64), cpu.to(torch.int64))
+    strided = torch.zeros((8, 8), dtype=torch.int32)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.mont_mul(FR, strided, strided)

@@ -1,0 +1,213 @@
+// Device arithmetic over the BLS12-381 scalar field Fr (8 x 32-bit limbs)
+// and base field Fq (12 x 32-bit limbs), and the complete G1 addition.
+//
+// Elements are little-endian uint32 limbs in Montgomery form with
+// R = 2^(32 N), held in registers.  Every function returns a fully reduced
+// value in [0, p), the same canonical limbs as the reference's
+// `_normalize_sub_p` (zkvm_tpu/ops/pallas_field.py), so results match the
+// reference bit for bit.  Constants are compile-time immediates: with the
+// limb loops unrolled, `F::p(j)` folds into the multiply-add instructions.
+//
+// The kernels that use these functions are bounded by 32-bit integer
+// multiply throughput (IMAD/IMAD.HI, two per limb product) and by register
+// pressure: one Fq product keeps ~40 words live, a G1 addition ~150.  This
+// first version is the plain CIOS schedule with 64-bit products; making it
+// faster (ILP across lanes, fewer live registers) is later work.
+#pragma once
+
+#include <cstdint>
+
+namespace zk {
+
+struct Fr {
+  static constexpr int N = 8;
+  static constexpr uint32_t NP0 = 0xffffffffu;  // -r^{-1} mod 2^32
+  __device__ __forceinline__ static uint32_t p(int i) {
+    constexpr uint32_t v[N] = {0x00000001, 0xffffffff, 0xfffe5bfe,
+                               0x53bda402, 0x09a1d805, 0x3339d808,
+                               0x299d7d48, 0x73eda753};
+    return v[i];
+  }
+};
+
+struct Fq {
+  static constexpr int N = 12;
+  static constexpr uint32_t NP0 = 0xfffcfffdu;  // -q^{-1} mod 2^32
+  __device__ __forceinline__ static uint32_t p(int i) {
+    constexpr uint32_t v[N] = {0xffffaaab, 0xb9feffff, 0xb153ffff,
+                               0x1eabfffe, 0xf6b0f624, 0x6730d2a0,
+                               0xf38512bf, 0x64774b84, 0x434bacd7,
+                               0x4b1ba7b6, 0x397fe69a, 0x1a0111ea};
+    return v[i];
+  }
+  // 1 in Montgomery form (R mod q)
+  __device__ __forceinline__ static uint32_t one(int i) {
+    constexpr uint32_t v[N] = {0x0002fffd, 0x76090000, 0xc40c0002,
+                               0xebf4000b, 0x53c758ba, 0x5f489857,
+                               0x70525745, 0x77ce5853, 0xa256ec6d,
+                               0x5c071a97, 0xfa80e493, 0x15f65ec3};
+    return v[i];
+  }
+  // 3 * b = 12 in Montgomery form (the RCB15 constant for a = 0, b = 4)
+  __device__ __forceinline__ static uint32_t b3(int i) {
+    constexpr uint32_t v[N] = {0x0027552e, 0x44760000, 0x43480020,
+                               0xdcb8009a, 0x4a6e8b59, 0x6f7ee9ce,
+                               0xc0a95bc6, 0xb10330b7, 0xfb1e54b7,
+                               0x6140b1fc, 0x7f0bb4e1, 0x0381be09};
+    return v[i];
+  }
+};
+
+// r = s - p if (top:s) >= p, else s.  Requires (top:s) < 2p.
+template <class F>
+__device__ __forceinline__ void reduce_once(uint32_t* r, const uint32_t* s,
+                                            uint32_t top) {
+  uint32_t d[F::N];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < F::N; ++j) {
+    uint64_t v = (uint64_t)s[j] - F::p(j) - borrow;
+    d[j] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  const bool use_d = (top != 0) || (borrow == 0);
+#pragma unroll
+  for (int j = 0; j < F::N; ++j) r[j] = use_d ? d[j] : s[j];
+}
+
+// r = (a + b) mod p; r may alias a or b.
+template <class F>
+__device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
+                                   const uint32_t* b) {
+  uint32_t s[F::N];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < F::N; ++j) {
+    uint64_t v = (uint64_t)a[j] + b[j] + c;
+    s[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+  reduce_once<F>(r, s, (uint32_t)c);
+}
+
+// r = (a - b) mod p; r may alias a or b.
+template <class F>
+__device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
+                                   const uint32_t* b) {
+  uint32_t d[F::N];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < F::N; ++j) {
+    uint64_t v = (uint64_t)a[j] - b[j] - borrow;
+    d[j] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  const uint32_t mask = 0u - borrow;  // add p back after an underflow
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < F::N; ++j) {
+    uint64_t v = (uint64_t)d[j] + (F::p(j) & mask) + c;
+    r[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+}
+
+// r = a * b * R^{-1} mod p (CIOS, one word of b per outer step); r may
+// alias a or b.  Every 64-bit sum below is at most (2^32-1)^2 + 2(2^32-1).
+template <class F>
+__device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
+                                        const uint32_t* b) {
+  constexpr int N = F::N;
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int k = 0; k < N + 2; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[N] + c;
+    t[N] = (uint32_t)s;
+    t[N + 1] = (uint32_t)(s >> 32);
+    const uint32_t m = t[0] * F::NP0;
+    s = (uint64_t)m * F::p(0) + t[0];  // low word becomes zero
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      s = (uint64_t)m * F::p(j) + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[N] + c;
+    t[N - 1] = (uint32_t)s;
+    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+  }
+  reduce_once<F>(r, t, t[N]);  // t < 2p
+}
+
+// ---- G1 (homogeneous projective over Fq, Montgomery coordinates) ----------
+
+struct G1 {
+  uint32_t x[Fq::N], y[Fq::N], z[Fq::N];
+};
+
+__device__ __forceinline__ void g1_identity(G1& o) {
+#pragma unroll
+  for (int j = 0; j < Fq::N; ++j) {
+    o.x[j] = 0;
+    o.y[j] = Fq::one(j);
+    o.z[j] = 0;
+  }
+}
+
+// o = p + q: complete RCB15 addition (Renes-Costello-Batina 2015,
+// algorithm 7, a = 0), in the formula order of the reference's
+// `_padd_vals`.  Identity operands and p == q need no special case.  o may
+// alias p or q.
+__device__ __forceinline__ void g1_add(G1& o, const G1& p, const G1& q) {
+  constexpr int N = Fq::N;
+  uint32_t t0[N], t1[N], t2[N], t3[N], t4[N], t5[N], a[N], b[N];
+  uint32_t b3[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) b3[j] = Fq::b3(j);
+  mont_mul<Fq>(t0, p.x, q.x);
+  mont_mul<Fq>(t1, p.y, q.y);
+  mont_mul<Fq>(t2, p.z, q.z);
+  add<Fq>(a, p.x, p.y);
+  add<Fq>(b, q.x, q.y);
+  mont_mul<Fq>(t3, a, b);
+  sub<Fq>(t3, t3, t0);
+  sub<Fq>(t3, t3, t1);
+  add<Fq>(a, p.y, p.z);
+  add<Fq>(b, q.y, q.z);
+  mont_mul<Fq>(t4, a, b);
+  sub<Fq>(t4, t4, t1);
+  sub<Fq>(t4, t4, t2);
+  add<Fq>(a, p.x, p.z);
+  add<Fq>(b, q.x, q.z);
+  mont_mul<Fq>(t5, a, b);
+  sub<Fq>(t5, t5, t0);
+  sub<Fq>(t5, t5, t2);
+  uint32_t z3[N], y3[N], t03[N];
+  mont_mul<Fq>(a, t2, b3);  // t6
+  add<Fq>(z3, t1, a);
+  sub<Fq>(t1, t1, a);
+  mont_mul<Fq>(y3, t5, b3);
+  add<Fq>(t03, t0, t0);
+  add<Fq>(t03, t03, t0);
+  mont_mul<Fq>(a, t3, t1);
+  mont_mul<Fq>(b, t4, y3);
+  sub<Fq>(o.x, a, b);
+  mont_mul<Fq>(a, t1, z3);
+  mont_mul<Fq>(b, y3, t03);
+  add<Fq>(o.y, a, b);
+  mont_mul<Fq>(a, z3, t4);
+  mont_mul<Fq>(b, t03, t3);
+  add<Fq>(o.z, a, b);
+}
+
+}  // namespace zk
