@@ -1,31 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the port's KZG commitment path once on one NVIDIA GPU.
+"""Drive the port's KZG commitment path and the polynomial path of a prover
+round once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the three CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the six CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
-     both timed there;
-  4. slice: PublicParameters.setup(2^16) on the card (a sample of 64 powers
-     checked against host group arithmetic), then commit_many_mont of four
-     and of one polynomial of 2^16 coefficients, each commitment checked
-     against the native host MSM over the full 2^16;
-  5. every kernel's launch count during the slice must be above zero.
+     both timed there; then the byte-plane matmul at its worst case
+     (m = 256, every byte 255) against an int64 product;
+  4. commitment path: PublicParameters.setup(2^16) on the card (a sample of
+     64 powers checked against host group arithmetic), then
+     commit_many_mont of four and of one polynomial of 2^16 coefficients,
+     each commitment checked against the native host MSM over the full
+     2^16;
+  5. polynomial path at n = 2^16 / 8n = 2^19: four evaluation vectors ->
+     batched ifft -> blinders -> commit -> pad -> coset fft and back ->
+     evaluations at z -> linear combination -> division by (X - z) ->
+     commit of the witness -> AggregateProof.flatten -> OpeningKey.check
+     (true, and false after one evaluation is altered); the staged
+     butterfly transform and the unfused leaf reduction each redo a whole
+     2^16 transform and must equal the matmul route bit for bit; sampled
+     evaluations are checked against host big-int Horner;
+  6. transform times, both routes, 1 and 4 polynomials;
+     with --profile, also where the device time goes (torch.profiler);
+  7. every kernel's launch count must be above zero.  The counts are set to
+     0 just before each region and read just after it; the regions are the
+     commitment path, one warm polynomial path, and the two whole-transform
+     cross-checks (the only callers of butterfly and fold), reported apart.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
-{"ok": true, "device": {...}}.  JAX is blocked for the whole run: the port
-must not need it.
+{"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
+whole run: the port must need neither.
 """
 
 import sys
 
 sys.modules["jax"] = None  # any import of jax now fails
+sys.modules["zkvm_tpu"] = None  # and any import of the JAX package
 
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -33,22 +50,31 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
-from zkvm_tpu.curves.g1 import G1Affine, G1Projective  # noqa: E402
-from zkvm_tpu.fields import Fp, Fr  # noqa: E402
-from zkvm_tpu.native import native_msm  # noqa: E402
-from zkvm_tpu.rng import StdRng  # noqa: E402
-from zkvm_tpu_torch.ops import g1_ops, kernels  # noqa: E402
+from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective  # noqa: E402
+from zkvm_tpu_torch.fields import Fp, Fr  # noqa: E402
+from zkvm_tpu_torch.native import native_msm  # noqa: E402
+from zkvm_tpu_torch.ops import g1_ops, kernels, ntt, ntt_mxu  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk.kzg10 import PublicParameters  # noqa: E402
+from zkvm_tpu_torch.plonk import dpoly  # noqa: E402
+from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
+                                        PublicParameters, powers_of)
+from zkvm_tpu_torch.rng import StdRng  # noqa: E402
 
 SEED = 2026
 LOG_N = 16
 N = 1 << LOG_N
+N8 = 8 * N
+Q = FR.modulus
+# the largest byte column the matmul route can make: 32 byte pairs, each a
+# sum of 256 products of 255 * 255
+WORST_COLUMN = 32 * 256 * 255 * 255
 
 # name -> (CUDA source, the Pallas kernel it replaces: mont_mul_pallas,
-# padd_pallas_2l, window_fold_pallas)
+# padd_pallas_2l, window_fold_pallas, butterfly_pallas, _carry_fold_pallas,
+# _fold_pallas)
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -56,7 +82,36 @@ KERNELS = {
              "zkvm_tpu/ops/pallas_field.py:497"),
     "window_fold": ("zkvm_tpu_torch/csrc/window_fold.cu",
                     "zkvm_tpu/ops/pallas_field.py:726"),
+    "butterfly": ("zkvm_tpu_torch/csrc/butterfly.cu",
+                  "zkvm_tpu/ops/pallas_field.py:676"),
+    "carry_fold": ("zkvm_tpu_torch/csrc/ntt_fold.cu",
+                   "zkvm_tpu/ops/ntt_mxu.py:199"),
+    "fold": ("zkvm_tpu_torch/csrc/ntt_fold.cu",
+             "zkvm_tpu/ops/ntt_mxu.py:165"),
 }
+
+# The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
+# device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
+# fused multiply-adds a second.  An SM has 64 int32 lanes beside its 128
+# float32 lanes, so 32-bit integer multiply-adds peak at half of that.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 33.5e12 / 2
+
+
+def mont_mul_ops(n_limbs: int) -> int:
+    """32-bit multiply-adds of one CIOS Montgomery product: 2 N^2 + N limb
+    products of 32 x 32 -> 64 bits, a low and a high half each."""
+    return 2 * (2 * n_limbs * n_limbs + n_limbs)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes moved (every input read
+    once, every output written once) over the memory rate, or integer
+    multiply-adds over their peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / IMAD_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def log(*args):
@@ -87,11 +142,15 @@ def set_lanes(arr: np.ndarray, spec, lane_values) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls (CUDA events, one warm-up)."""
+    """Mean device time of fn() over reps calls (CUDA events, one warm-up).
+    The card first spins for about 10 ms while the host enqueues, so that
+    launches shorter than the wrapper's enqueue time (~0.02 ms) are timed
+    back to back and not by the rate at which Python issues them."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -146,7 +205,9 @@ def phase_parity(rng, dev) -> dict:
     ms = cuda_ms(lambda: kernels.mont_mul(FQ, a, b), 50)
     plain_ms = cuda_ms(lambda: kernels.mont_mul_plain(FQ, a, b), 3)
     rec["mont_mul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           shape="Fq [12, 65543]")
+                           shape="Fq [12, 65543]",
+                           **bound(3 * a.numel() * 4,
+                                   mont_mul_ops(12) * a.shape[-1]))
 
     # -- padd: identity, P+P, P+(-P), Q+identity on a ragged batch (CPU plain)
     n = 1000
@@ -176,8 +237,11 @@ def phase_parity(rng, dev) -> dict:
     err = max(err, max_abs_err(kernels.padd(p, q), kernels.padd_plain(p, q)))
     ms = cuda_ms(lambda: kernels.padd(p, q), 10)
     plain_ms = cuda_ms(lambda: kernels.padd_plain(p, q), 1)
+    # 12 variable and 2 constant Montgomery products a lane
     rec["padd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       shape="[24, 12, 32768]")
+                       shape="[24, 12, 32768]",
+                       **bound(9 * p[0].numel() * 4,
+                               14 * mont_mul_ops(12) * p[0].numel() // 12))
     del p, q
 
     # -- window_fold: 4 sets x 24 windows, c = 11 (the 4-set commit), with
@@ -194,17 +258,193 @@ def phase_parity(rng, dev) -> dict:
     ms = cuda_ms(lambda: kernels.window_fold(c, w_count, n_sets, *sd), 10)
     plain_ms = cuda_ms(lambda: kernels.window_fold_plain(c, w_count, n_sets,
                                                          *sd), 1)
-    rec["window_fold"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              shape="S=4, W=24, c=11")
+    # W (c + 1) additions a set; the chain is serial, which no bound of
+    # bytes or operations sees
+    rec["window_fold"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape="S=4, W=24, c=11",
+        **bound((3 * sums[0].numel() + 3 * 12 * n_sets) * 4,
+                n_sets * w_count * (c + 1) * 14 * mont_mul_ops(12)))
+
+    phase_parity_ntt(rng, dev, rec)
 
     for name, r in rec.items():
         log(f"parity {name}: max_abs_err={r['max_abs_err']} (tolerance 0: "
             f"bit for bit), kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms at {r['shape']}")
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}, at {r['shape']}")
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err={r['max_abs_err']})")
     return rec
+
+
+def byte_columns(rng, lanes: int) -> np.ndarray:
+    """[68, lanes] int32 byte columns of matmul scale: 63 columns below
+    2^24, the top five zero so that the final carry dies."""
+    d = np.zeros((kernels.N_COLUMNS, lanes), dtype=np.int32)
+    d[:63] = rng.integers(0, 1 << 24, size=(63, lanes))
+    return d
+
+
+def phase_parity_ntt(rng, dev, rec) -> None:
+    """butterfly, carry_fold and fold against their plain versions."""
+    rinv = pow(1 << 256, -1, Q)
+
+    # -- butterfly: edge lanes on a ragged batch (CPU plain): zeros, ones,
+    # r - 1, a sum >= r (lane 3: e = r - 1, t = 1) and a difference < 0
+    # (lane 4: e = 0, t = 1)
+    e = rand_field(FR, (8, 4099), rng)
+    o = rand_field(FR, (8, 4099), rng)
+    w = rand_field(FR, (8, 4099), rng)
+    set_lanes(e, FR, [0, 1, Q - 1, Q - 1, 0, 5, Q - 1])
+    set_lanes(o, FR, [0, 1, Q - 1, rinv, rinv, 0, Q - 1])
+    set_lanes(w, FR, [7, 1, Q - 1, FR.R, FR.R, 3, 1])
+    te, to, tw = (lf.u32_to_tensor(t, "cpu") for t in (e, o, w))
+    got = kernels.butterfly(te.to(dev), to.to(dev), tw.to(dev))
+    err = max_abs_err(got, kernels.butterfly_plain(te, to, tw))
+    # a [3, 8, B] batch with one shared [8, B] twiddle table
+    be = lf.u32_to_tensor(rand_field(FR, (3, 8, 1027), rng), "cpu")
+    bo = lf.u32_to_tensor(rand_field(FR, (3, 8, 1027), rng), "cpu")
+    bw = lf.u32_to_tensor(rand_field(FR, (8, 1027), rng), "cpu")
+    got = kernels.butterfly(be.to(dev), bo.to(dev), bw.to(dev))
+    err = max(err, max_abs_err(got, kernels.butterfly_plain(be, bo, bw)))
+    # slice shapes: one stage of a 2^16 and of a 2^19 transform
+    for lanes in (N // 2, N8 // 2):
+        e, o, w = (lf.u32_to_tensor(rand_field(FR, (8, lanes), rng), dev)
+                   for _ in range(3))
+        err = max(err, max_abs_err(kernels.butterfly(e, o, w),
+                                   kernels.butterfly_plain(e, o, w)))
+        ms = cuda_ms(lambda: kernels.butterfly(e, o, w), 50)
+        plain_ms = cuda_ms(lambda: kernels.butterfly_plain(e, o, w), 3)
+        b = bound(5 * e.numel() * 4, mont_mul_ops(8) * lanes)
+        if lanes == N // 2:
+            rec["butterfly"] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms,
+                                    shape=f"[8, {lanes}]", **b)
+        else:
+            log(f"butterfly at [8, {lanes}]: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by "
+                f"{b['bound_by']}")
+    rec["butterfly"]["max_abs_err"] = err
+
+    # -- carry_fold: ragged batch with every column at 2^24 - 1, zeros, and
+    # single columns (CPU plain); lanes 3 and 4 at the matmul route's
+    # largest columns, 32 byte pairs of 256 * 255^2 each (just below 2^29)
+    d = byte_columns(rng, 4099)
+    d[:63, 0] = (1 << 24) - 1
+    d[:, 1] = 0
+    d[:, 2] = 0
+    d[62, 2] = (1 << 24) - 1
+    d[:63, 3] = WORST_COLUMN
+    d[:, 4] = 0
+    d[62, 4] = WORST_COLUMN
+    td = torch.from_numpy(d)
+    got = kernels.carry_fold(td.to(dev))
+    err = max_abs_err(got, kernels.carry_fold_plain(td))
+    host = lf.tensor_to_u32(got)
+    for j in range(8):
+        value = sum(int(c) << (8 * t) for t, c in enumerate(d[:, j].tolist()))
+        if lf.limbs_to_int(host[:, j]) != value % Q:
+            raise AssertionError(f"carry_fold lane {j} disagrees with the "
+                                 f"host")
+    # slice shapes: the leaves of one 2^16 transform and of four 2^19
+    for lanes in (N, 4 * N8):
+        dd = torch.from_numpy(byte_columns(rng, lanes)).to(dev)
+        err = max(err, max_abs_err(kernels.carry_fold(dd),
+                                   kernels.carry_fold_plain(dd)))
+        ms = cuda_ms(lambda: kernels.carry_fold(dd), 20)
+        plain_ms = cuda_ms(lambda: kernels.carry_fold_plain(dd), 1)
+        b = bound((kernels.N_COLUMNS + 8) * lanes * 4,
+                  2 * mont_mul_ops(8) * lanes)
+        if lanes == 4 * N8:
+            rec["carry_fold"] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms,
+                                     shape=f"[68, {lanes}]", **b)
+        else:
+            log(f"carry_fold at [68, {lanes}]: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by "
+                f"{b['bound_by']}")
+        del dd
+    rec["carry_fold"]["max_abs_err"] = err
+
+    # -- fold: ragged batch; lo = r, in [r, 2r), 2r, in [2r, 2^256), all
+    # ones (CPU plain)
+    v = rng.integers(0, 1 << 32, size=(kernels.N_WORDS, 4099),
+                     dtype=np.uint64).astype(np.uint32)
+    edge = [0, 1, Q, Q + 5, 2 * Q - 1, 2 * Q, 2 * Q + 9, (1 << 256) - 1,
+            (1 << 544) - 1]
+    for j, val in enumerate(edge):
+        v[:, j] = lf.int_to_limbs(val if val >> 256 else val
+                                  | (int(rng.integers(1, 1 << 62)) << 256),
+                                  kernels.N_WORDS)
+    tv = lf.u32_to_tensor(v, "cpu")
+    err = max_abs_err(kernels.fold(tv.to(dev)), kernels.fold_plain(tv))
+    host = lf.tensor_to_u32(kernels.fold(tv.to(dev)))
+    for j in range(len(edge)):
+        if lf.limbs_to_int(host[:, j]) != lf.limbs_to_int(v[:, j]) % Q:
+            raise AssertionError(f"fold lane {j} disagrees with the host")
+    # slice shape: the leaves of one 2^16 transform
+    fv = lf.u32_to_tensor(rng.integers(
+        0, 1 << 32, size=(kernels.N_WORDS, N), dtype=np.uint64).astype(
+            np.uint32), dev)
+    err = max(err, max_abs_err(kernels.fold(fv), kernels.fold_plain(fv)))
+    ms = cuda_ms(lambda: kernels.fold(fv), 50)
+    plain_ms = cuda_ms(lambda: kernels.fold_plain(fv), 3)
+    rec["fold"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       shape=f"[17, {N}]",
+                       **bound((kernels.N_WORDS + 8) * N * 4,
+                               2 * mont_mul_ops(8) * N))
+
+
+def phase_matmul_exact(dev) -> None:
+    """The byte-plane product at its worst case -- m = 256, every byte 255,
+    so every sum is 256 * 255^2 = 16,646,400 < 2^24 -- and on random bytes,
+    against an int64 product that uses no tensor core: broadcast
+    multiply-add in integer arithmetic."""
+    m, cols = 256, 32
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    for name, a, b in (
+            ("all bytes 255", torch.full((32 * m, m), 255),
+             torch.full((m, cols), 255)),
+            ("random bytes", torch.randint(0, 256, (32 * m, m), generator=gen),
+             torch.randint(0, 256, (m, cols), generator=gen))):
+        a, b = a.to(dev), b.to(dev)
+        got = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+        if got.dtype != torch.float32:
+            raise AssertionError(f"matmul returned {got.dtype}")
+        want = (a.to(torch.int64).unsqueeze(-1)
+                * b.to(torch.int64).unsqueeze(0)).sum(dim=1)
+        if not torch.equal(got.to(torch.int64), want):
+            raise AssertionError(f"float32 matmul is not exact ({name})")
+        log(f"matmul exact at m = {m}, {name}: max sum {int(want.max())}")
+    # the port's own function, both branches: limbs of all ones against a
+    # table of all 255 give D[t] = (pairs k + p = t) * 16,646,400
+    x = torch.full((4, 8, m), -1, dtype=torch.int32, device=dev)
+    table = torch.full((32 * m, m), 255.0, device=dev)
+    pairs = torch.tensor([max(0, min(t, 62 - t) + 1) for t in range(68)],
+                         dtype=torch.int64, device=dev)
+    want = (pairs * 256 * 255 * 255).view(68, 1, 1).expand(68, m, 4)
+    if int(want.max()) != WORST_COLUMN:
+        raise AssertionError("the worst column is not 32 * 256 * 255^2")
+    value = sum(int(c) << (8 * t) for t, c in enumerate(want[:, 0, 0].tolist()))
+    for whole in (True, False):
+        d = ntt_mxu._byte_columns(x, table, whole=whole)
+        if not torch.equal(d.to(torch.int64), want):
+            raise AssertionError("byte columns wrong at the worst case")
+        # the columns at their largest through the reduction kernel
+        got = kernels.carry_fold(d)
+        if not (torch.equal(got, kernels.carry_fold_plain(d))
+                and torch.equal(got.cpu(), kernels.carry_fold_plain(d.cpu()))):
+            raise AssertionError("carry_fold disagrees with its plain "
+                                 "version at the worst case")
+        host = lf.tensor_to_u32(got.reshape(8, -1))
+        if any(lf.limbs_to_int(host[:, j]) != value % Q
+               for j in (0, 1, host.shape[1] - 1)):
+            raise AssertionError("carry_fold disagrees with the host at the "
+                                 "worst case")
+    log("byte columns exact at the worst case on both branches (largest "
+        f"column {WORST_COLUMN} < 2^29); carry_fold of them equals its plain "
+        f"version and the host's big-int value mod r")
 
 
 def native_commit(points, coeffs) -> G1Projective:
@@ -266,7 +506,7 @@ def phase_slice(rng, dev) -> dict:
     log(f"commit 1 x 2^{LOG_N}: warm {out['commit1_s']:.3f} s = "
         f"{N / out['commit1_s']:.1f} points/s, peak "
         f"{out['commit1_peak_gib']:.2f} GiB")
-    log(f"launches on the main path: {launches}")
+    log(f"launches on the commitment path: {launches}")
 
     # ---- checks ----
     check = StdRng(SEED)
@@ -289,12 +529,349 @@ def phase_slice(rng, dev) -> dict:
         raise AssertionError("single-set commitment disagrees")
     log("commit: 4 + 1 commitments equal the native host MSM over 2^16")
 
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    require_launched(launches, ("mont_mul", "padd", "window_fold"),
+                     "commitment path")
     out["launches"] = launches
+    out["commit_key"] = ck
+    out["opening_key"] = pp.opening_key
     return out
+
+
+def require_launched(launches, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path}")
+
+
+def mont_ints(t: torch.Tensor) -> list[int]:
+    """[8, m] Montgomery tensor -> canonical Python ints."""
+    return FR.from_mont_array(t)
+
+
+def horner(coeffs: list[int], x: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % Q
+    return acc
+
+
+def poly_path(ck, ok, evals, rng_seed: int, z: Fr, v: Fr) -> dict:
+    """The polynomial path of a prover round through the port's entry
+    points; everything stays on the card but the transcript scalars and
+    the commitment points."""
+    dev = evals.device
+    rng = StdRng(rng_seed)
+    dom, dom8 = ntt.Domain(N), ntt.Domain(N8)
+    coeffs = dom.ifft_device(evals)                          # [4, 8, n]
+    blinded = [dpoly.apply_blinders_device(rng, coeffs[k], 1)
+               for k in range(4)]                            # [8, n + 2]
+    commits = ck.commit_many_mont(blinded)                   # round-1 shape
+    padded = torch.stack([F.pad(t, (0, N8 - t.shape[-1])) for t in blinded])
+    coset = dom8.coset_fft_device(padded)                    # [4, 8, 8n]
+    back = dom8.coset_ifft_device(coset)
+    at_z = dpoly.eval_stack(torch.stack(blinded), z)
+    numerator = dpoly.lin_comb(list(zip(blinded, powers_of(v, 3))), N + 2,
+                               dev)
+    witness = dpoly.ruffini_device(numerator, z)
+    w_commit = ck.commit_many_mont([witness])[0]
+    agg = AggregateProof(w_commit)
+    for e, c in zip(at_z, commits):
+        agg.add_part(e, c)
+    verified = ok.check(z, agg.flatten(v))
+    torch.cuda.synchronize()
+    return dict(coeffs=coeffs, blinded=blinded, commits=commits,
+                padded=padded, coset=coset, back=back, at_z=at_z,
+                witness=witness, w_commit=w_commit, agg=agg,
+                verified=verified)
+
+
+def phase_poly(rng, dev, ck, ok) -> dict:
+    out = {}
+    evals = lf.u32_to_tensor(rand_field(FR, (4, 8, N), rng), dev)
+    z = Fr(int(rng.integers(1, 1 << 62)) << 130 | 0x1234567)
+    v = Fr(int(rng.integers(1, 1 << 62)) << 120 | 0x7654321)
+
+    # host tables, built once per (n, root): apart from the transform times
+    t0 = time.perf_counter()
+    for dom in (ntt.Domain(N), ntt.Domain(N8)):
+        for root in (dom.group_gen, dom.group_gen_inv):
+            ntt_mxu.MXUTransform(dom.size, root)
+    out["mxu_tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ntt.Domain(N)._factor("size_inv", dev)
+    ntt.Domain(N8)._factor("coset", dev)
+    ntt.Domain(N8)._factor("coset_inv_scaled", dev)
+    out["factor_tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ntt.Domain(N)._butterfly_tables(dev)
+    out["butterfly_tables_s"] = time.perf_counter() - t0
+    log(f"host tables: matmul route 2^16 + 2^19, forward and inverse "
+        f"{out['mxu_tables_s']:.3f} s; coset and 1/n factors "
+        f"{out['factor_tables_s']:.3f} s; staged butterfly 2^16 "
+        f"{out['butterfly_tables_s']:.3f} s")
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    poly_path(ck, ok, evals, SEED + 1, z, v)
+    out["path_first_s"] = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    # ---- main path: the polynomial path, one warm call ----
+    t0 = time.perf_counter()
+    r = poly_path(ck, ok, evals, SEED + 1, z, v)
+    out["path_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # ---- end of main path ----
+
+    kernels.reset_launches()
+    # ---- cross-checks: the other route and the unfused reduction, each
+    # over a whole 2^16 transform, forward and inverse ----
+    dom = ntt.Domain(N)
+    x = r["coeffs"][0]
+    fwd = dom.fft_device(x)
+    inv = dom._run(fwd, inverse=True)
+    routes_agree = (
+        torch.equal(ntt.butterfly_transform(dom, x), fwd)
+        and torch.equal(ntt.butterfly_transform(dom, fwd, inverse=True), inv))
+    t_fwd = ntt_mxu.MXUTransform(N, dom.group_gen)
+    t_inv = ntt_mxu.MXUTransform(N, dom.group_gen_inv)
+    unfused_agrees = (
+        torch.equal(ntt_mxu.transform_unfused(t_fwd, x), fwd)
+        and torch.equal(ntt_mxu.transform_unfused(t_inv, fwd), inv))
+    torch.cuda.synchronize()
+    crosscheck = dict(kernels.LAUNCHES)
+    # ---- end of cross-checks ----
+    log(f"polynomial path 2^{LOG_N} / 2^{LOG_N + 3}: first "
+        f"{out['path_first_s']:.3f} s, warm {out['path_s']:.3f} s")
+    log(f"launches on one polynomial path: {launches}")
+    log(f"launches of the whole-transform cross-checks: {crosscheck}")
+
+    # ---- checks ----
+    if not r["verified"]:
+        raise AssertionError("the opening does not verify")
+    bad = AggregateProof(r["w_commit"])
+    for k, (e, c) in enumerate(zip(r["at_z"], r["commits"])):
+        bad.add_part(e + Fr.one() if k == 2 else e, c)
+    if ok.check(z, bad.flatten(v)):
+        raise AssertionError("an altered evaluation still verifies")
+    log("opening: OpeningKey.check is true, and false after one evaluation "
+        "is altered")
+    if not torch.equal(r["back"], r["padded"]):
+        raise AssertionError("coset_ifft(coset_fft(p)) != p at 2^19")
+    if not torch.equal(fwd, evals[0]):
+        raise AssertionError("fft(ifft(evals)) != evals at 2^16")
+    if not routes_agree:
+        raise AssertionError("the staged butterfly transform disagrees "
+                             "with the matmul transform at 2^16")
+    if not unfused_agrees:
+        raise AssertionError("the unfused leaf reduction disagrees with "
+                             "carry_fold over a 2^16 transform")
+    log("routes: staged butterfly == matmul and unfused fold == fused, bit "
+        "for bit, 2^16 forward and inverse; both round trips exact")
+
+    # sampled evaluations against host big-int Horner
+    c0 = mont_ints(x)
+    e0 = mont_ints(fwd)
+    ks = [0, 1, N - 1] + rng.integers(2, N - 1, 13).tolist()
+    for k in ks:
+        if e0[k] != horner(c0, pow(dom.group_gen, k, Q)):
+            raise AssertionError(f"fft_device disagrees with Horner at "
+                                 f"omega^{k}")
+    dom8 = ntt.Domain(N8)
+    b0 = mont_ints(r["blinded"][0])
+    ks8 = [0, 1, N8 - 1] + rng.integers(2, N8 - 1, 13).tolist()
+    sample = mont_ints(r["coset"][0].index_select(
+        -1, torch.tensor(ks8, device=dev)))
+    for got, k in zip(sample, ks8):
+        point = dom8.generator * pow(dom8.group_gen, k, Q) % Q
+        if got != horner(b0, point):
+            raise AssertionError(f"coset_fft_device disagrees with Horner "
+                                 f"at g omega^{k}")
+    for k in range(4):
+        if r["at_z"][k].value != horner(mont_ints(r["blinded"][k]), z.value):
+            raise AssertionError(f"eval_stack disagrees with Horner for "
+                                 f"polynomial {k}")
+    log("host checks: fft at 16 points of the 2^16 domain, coset_fft at 16 "
+        "points of the 2^19 coset, eval_stack of 4 polynomials equal "
+        "big-int Horner")
+    points = ck.powers_of_g[:N + 2]
+    if r["commits"][0].point != native_commit(
+            points, [Fr(c) for c in b0]).to_affine():
+        raise AssertionError("blinded commitment disagrees with the native "
+                             "MSM")
+    log("commit: the first blinded commitment equals the native host MSM")
+
+    require_launched(launches, ("mont_mul", "padd", "window_fold",
+                                "carry_fold"), "polynomial path")
+    require_launched(crosscheck, ("mont_mul", "butterfly", "carry_fold",
+                                  "fold"), "whole-transform cross-checks")
+    out["launches"] = launches
+    out["crosscheck"] = crosscheck
+    return out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean wall time of fn() (host work included), synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_times(rng, dev) -> None:
+    """Transform times, warm, both routes, 1 and 4 polynomials: device time
+    (CUDA events, launches back to back) and wall time (host clock,
+    synchronised: what a caller waits, Python's enqueueing included); the
+    dpoly functions and the int64 add/sub glue at 2^16; peak memory."""
+    def butterfly_route(dom, name):
+        def run(x):
+            if name == "coset_fft":
+                x = ntt._scale(x, dom._factor("coset", dev))
+            y = ntt.butterfly_transform(dom, x, inverse=name == "coset_ifft")
+            if name == "coset_ifft":
+                y = ntt._scale(y, dom._factor("coset_inv_scaled", dev))
+            return y
+        return run
+
+    for size, names in ((1 << 14, ("fft",)), (N, ("fft",)),
+                        (N8, ("coset_fft", "coset_ifft"))):
+        dom = ntt.Domain(size)
+        t0 = time.perf_counter()
+        dom._butterfly_tables(dev)
+        for root in (dom.group_gen, dom.group_gen_inv):
+            ntt_mxu.MXUTransform(size, root)
+        tables_s = time.perf_counter() - t0
+        for batch in (1, 4):
+            x = lf.u32_to_tensor(rand_field(FR, (batch, 8, size), rng), dev)
+            for name in names:
+                mxu = getattr(dom, name + "_device")
+                bfly = butterfly_route(dom, name)
+                if not torch.equal(mxu(x), bfly(x)):
+                    raise AssertionError(f"routes disagree: {name} 2^"
+                                         f"{size.bit_length() - 1} x {batch}")
+                reps = 3 if size == N8 else 10
+                line = f"time {name} 2^{size.bit_length() - 1} x {batch}:"
+                for route, fn in (("matmul", mxu), ("butterfly", bfly)):
+                    torch.cuda.reset_peak_memory_stats()
+                    dev_ms = cuda_ms(lambda: fn(x), reps)
+                    wall_ms = host_ms(lambda: fn(x), reps)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    line += (f" {route} route device {dev_ms:.4f} ms, wall "
+                             f"{wall_ms:.4f} ms, peak {peak:.3f} GiB;")
+                log(f"{line} remaining host tables {tables_s:.3f} s")
+            del x
+
+    z = Fr(0x1F2E3D4C5B6A79880123456789ABCDEF)
+    c = lf.u32_to_tensor(rand_field(FR, (8, N + 2), rng), dev)
+    stack = torch.stack([c, c, c, c])
+    log(f"time eval_stack 4 x (2^16 + 2): "
+        f"{host_ms(lambda: dpoly.eval_stack(stack, z), 3):.3f} ms; "
+        f"ruffini_device 2^16 + 2: "
+        f"{host_ms(lambda: dpoly.ruffini_device(c, z), 3):.3f} ms "
+        f"(host clock, synchronised)")
+    a = lf.u32_to_tensor(rand_field(FR, (8, N), rng), dev)
+    b = lf.u32_to_tensor(rand_field(FR, (8, N), rng), dev)
+    log(f"time int64 glue at [8, 2^16]: lf.add "
+        f"{cuda_ms(lambda: lf.add(FR, a, b), 20):.4f} ms, lf.sub "
+        f"{cuda_ms(lambda: lf.sub(FR, a, b), 20):.4f} ms, mont_mul kernel "
+        f"{cuda_ms(lambda: lf.mont_mul(FR, a, b), 20):.4f} ms")
+
+
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """(name, device microseconds, count) of every kernel and copy that
+    ran on the card under `prof`, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (e.self_device_time_total if hasattr(e, "self_device_time_total")
+              else e.self_cuda_time_total)
+        rows.append((e.key, float(us), e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profiled(label: str, fn, top: int = 10) -> list[tuple[str, float, int]]:
+    """One warm call of fn() under torch.profiler: wall time, device busy
+    time and idle share, and the largest device items by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, us, count in rows[:top]:
+        log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+            f"x{count:<5d} {name[:90]}")
+    return rows
+
+
+def phase_profile(rng, dev, ck, ok) -> None:
+    """`--profile`: where the device time goes (torch.profiler) on one warm
+    polynomial path and on one 2^19 x 4 coset fft by each route, and each
+    kernel's device time per launch at the slice's shapes (its CUDA-event
+    time above includes the wrapper's enqueue time, which exceeds the
+    short kernels')."""
+    evals = lf.u32_to_tensor(rand_field(FR, (4, 8, N), rng), dev)
+    z, v = Fr(0x1234567 << 100 | 5), Fr(0x7654321 << 90 | 7)
+    profiled("polynomial path 2^16 / 2^19",
+             lambda: poly_path(ck, ok, evals, SEED + 2, z, v), top=16)
+    dom8 = ntt.Domain(N8)
+    x = lf.u32_to_tensor(rand_field(FR, (4, 8, N8), rng), dev)
+    profiled("coset_fft 2^19 x 4, matmul route",
+             lambda: dom8.coset_fft_device(x))
+    profiled("coset_fft 2^19 x 4, butterfly route",
+             lambda: ntt.butterfly_transform(
+                 dom8, ntt._scale(x, dom8._factor("coset", dev))))
+    del x
+
+    def field(spec, shape):
+        return lf.u32_to_tensor(rand_field(spec, shape, rng), dev)
+
+    a, b = field(FQ, (12, N + 7)), field(FQ, (12, N + 7))
+    p = tuple(field(FQ, (24, 12, N // 2)) for _ in range(3))
+    q = tuple(field(FQ, (24, 12, N // 2)) for _ in range(3))
+    e, o, w = (field(FR, (8, N // 2)) for _ in range(3))
+    e8, o8, w8 = (field(FR, (8, N8 // 2)) for _ in range(3))
+    d1 = torch.from_numpy(byte_columns(rng, N)).to(dev)
+    d4 = torch.from_numpy(byte_columns(rng, 4 * N8)).to(dev)
+    fv = field(FR, (8, N))
+    fv = torch.cat([fv, fv, fv[:1]])  # [17, 2^16] words
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in (
+            ("mont_mul Fq [12, 65543]", lambda: kernels.mont_mul(FQ, a, b)),
+            ("padd [24, 12, 32768]", lambda: kernels.padd(p, q)),
+            ("butterfly [8, 2^15]", lambda: kernels.butterfly(e, o, w)),
+            ("butterfly [8, 2^18]", lambda: kernels.butterfly(e8, o8, w8)),
+            ("carry_fold [68, 2^16]", lambda: kernels.carry_fold(d1)),
+            ("carry_fold [68, 2^21]", lambda: kernels.carry_fold(d4)),
+            ("fold [17, 2^16]", lambda: kernels.fold(fv))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        name, us, count = next(r for r in device_rows(prof)
+                               if "_kernel" in r[0])
+        log(f"  device time per launch, {label}: {us / count / 1e3:.5f} ms "
+            f"(x{count}, {name[:60]})")
 
 
 def main() -> int:
@@ -315,13 +892,29 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rec = phase_parity(rng, dev)
+    phase_matmul_exact(dev)
     sl = phase_slice(rng, dev)
+    po = phase_poly(rng, dev, sl["commit_key"], sl["opening_key"])
+    phase_times(rng, dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
 
+    # launches: the sum of the three counted regions, each also given apart;
+    # no single PyTorch call computes any of the six functions, so there is
+    # no library time
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": sl["launches"][name],
+         "replaces": KERNELS[name][1],
+         "launches": (sl["launches"][name] + po["launches"][name]
+                      + po["crosscheck"][name]),
+         "launches_commit_path": sl["launches"][name],
+         "launches_poly_path": po["launches"][name],
+         "launches_crosscheck": po["crosscheck"][name],
          "max_abs_err": rec[name]["max_abs_err"], "ms": rec[name]["ms"],
-         "plain_ms": rec[name]["plain_ms"]} for name in KERNELS]}
+         "plain_ms": rec[name]["plain_ms"],
+         "bound_ms": rec[name]["bound_ms"],
+         "bound_by": rec[name]["bound_by"], "library_ms": None,
+         "shape": rec[name]["shape"]} for name in KERNELS]}
     log(json.dumps(record))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

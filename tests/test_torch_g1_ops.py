@@ -3,15 +3,18 @@ zkvm_tpu.ops.g1_ops and the Pallas kernel it replaces.
 
 Inputs are numpy-seeded multiples of the generator plus identity and
 doubling lanes; coordinates are compared bit for bit after the layout
-conversion (exact arithmetic, tolerance zero).
+conversion (exact arithmetic, tolerance zero).  Points are made with the
+port's host classes and handed to the reference through their coordinates.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from zkvm_tpu.curves.g1 import G1Affine, G1Projective
-from zkvm_tpu.fields import Fr
+from zkvm_tpu.curves.g1 import G1Affine as RG1Affine
+from zkvm_tpu.fields import Fp as RFp
+from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective
+from zkvm_tpu_torch.fields import Fr
 from zkvm_tpu.ops import g1_ops as rg1
 from zkvm_tpu.ops import pallas_field
 from zkvm_tpu_torch.ops import g1_ops, kernels
@@ -35,7 +38,9 @@ def _points(n, seed):
 
 def _both(points):
     """The same points as reference and port device triples."""
-    ref = rg1.affine_to_device(points)
+    ref = rg1.affine_to_device(
+        [RG1Affine.identity() if p.infinity
+         else RG1Affine(RFp(p.x.value), RFp(p.y.value)) for p in points])
     port = tuple(lf.from_reference(np.asarray(t), lf.FQ, "cpu") for t in ref)
     return ref, port
 

@@ -1,19 +1,25 @@
 """The CUDA kernels on the card against their plain versions, bit for bit.
 
 Marked `gpu`: they need an NVIDIA GPU and nvcc, and skip elsewhere.  Run
-them on the card with `python -m pytest -m gpu tests/test_torch_*.py`.
+them on the card with
+`python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py`
+(this file needs no jax: of zkvm_tpu it takes only the host MSM, which
+imports none, as the oracle of the commitment).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from zkvm_tpu.curves.msm import msm_variable_base
-from zkvm_tpu.fields import Fr
-from zkvm_tpu.rng import StdRng
+from zkvm_tpu.curves.g1 import G1Affine as RG1Affine
+from zkvm_tpu.curves.msm import msm_variable_base as ref_msm_variable_base
+from zkvm_tpu.fields import Fp as RFp
+from zkvm_tpu.fields import Fr as RFr
+from zkvm_tpu_torch.fields import Fr
 from zkvm_tpu_torch.ops import kernels
 from zkvm_tpu_torch.ops import limb_field as lf
 from zkvm_tpu_torch.plonk import kzg10
+from zkvm_tpu_torch.rng import StdRng
 
 pytestmark = pytest.mark.gpu
 
@@ -65,5 +71,60 @@ def test_setup_and_commit_on_card(cuda):
     assert pp.to_raw_var_bytes() == ref.to_raw_var_bytes()
     coeffs = [Fr(3 * i + 1) for i in range(41)]
     got = pp.commit_key.commit(coeffs)
-    assert got.point == msm_variable_base(pp.commit_key.powers_of_g[:41],
-                                          coeffs).to_affine()
+    want = ref_msm_variable_base(
+        [RG1Affine(RFp(p.x.value), RFp(p.y.value))
+         for p in pp.commit_key.powers_of_g[:41]],
+        [RFr(c.value) for c in coeffs])
+    assert got.point.to_bytes() == want.to_affine().to_bytes()
+
+
+@pytest.mark.parametrize("lead,shared", [((), False), ((3,), True),
+                                         ((2, 2), False)])
+def test_butterfly_kernel_matches_plain(cuda, lead, shared):
+    shape = lead + (8, 1027)
+    even, odd = _field(lf.FR, shape, 12), _field(lf.FR, shape, 13)
+    tw = _field(lf.FR, (8, 1027) if shared else shape, 14)
+    got = kernels.butterfly(even.to(cuda), odd.to(cuda), tw.to(cuda))
+    for g, w in zip(got, kernels.butterfly_plain(even, odd, tw)):
+        assert torch.equal(g.cpu(), w)
+
+
+def _columns(seed, lanes):
+    rng = np.random.default_rng(seed)
+    d = np.zeros((68, lanes), dtype=np.int32)
+    d[:63] = rng.integers(0, 1 << 24, size=(63, lanes))
+    d[:63, 0] = (1 << 24) - 1
+    # the matmul route's largest columns: 32 byte pairs of 256 * 255^2 each
+    d[:63, 1] = 32 * 256 * 255 * 255
+    return torch.from_numpy(d)
+
+
+def test_carry_fold_kernel_matches_plain(cuda):
+    d = _columns(15, 1027)
+    got = kernels.carry_fold(d.to(cuda))
+    assert torch.equal(got.cpu(), kernels.carry_fold_plain(d))
+
+
+def test_fold_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(16)
+    w = rng.integers(0, 1 << 32, size=(17, 1027), dtype=np.uint64).astype(
+        np.uint32)
+    w[:, 0] = 0xFFFFFFFF
+    limbs = lf.u32_to_tensor(w, "cpu")
+    got = kernels.fold(limbs.to(cuda))
+    assert torch.equal(got.cpu(), kernels.fold_plain(limbs))
+
+
+def test_transform_routes_agree_on_card(cuda):
+    from zkvm_tpu_torch.ops import ntt, ntt_mxu
+
+    n = 1 << 10
+    dom = ntt.Domain(n)
+    x = _field(lf.FR, (2, 8, n), 17)
+    want = dom.fft_device(x)  # CPU: the plain versions
+    got = dom.fft_device(x.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ntt.butterfly_transform(dom, x.to(cuda)).cpu(), want)
+    t = ntt_mxu.MXUTransform(n, dom.group_gen)
+    assert torch.equal(ntt_mxu.transform_unfused(t, x.to(cuda)).cpu(), want)
+    assert torch.equal(dom.ifft_device(got).cpu(), x)

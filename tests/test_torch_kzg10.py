@@ -3,24 +3,29 @@
 One seed must give the reference's SRS byte for byte (the port computes
 the powers of g on the device, the reference on the host at this size),
 and commitments to the same Montgomery coefficient arrays must give the
-same bytes.  Exact equality throughout.
+same bytes.  Exact equality throughout.  Each package gets its own host
+classes (field elements, points, RNG); the two meet only as ints and bytes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from zkvm_tpu.curves.g1 import G1Affine as RG1Affine
 from zkvm_tpu.fields import Fr
 from zkvm_tpu.ops import limb_field as rlf
 from zkvm_tpu.plonk import kzg10 as rkzg
 from zkvm_tpu.plonk.polynomial import Polynomial
 from zkvm_tpu.rng import StdRng
+from zkvm_tpu_torch.curves.g1 import G1Affine as PG1Affine
+from zkvm_tpu_torch.fields import Fr as PFr
 from zkvm_tpu_torch.ops import limb_field as lf
 from zkvm_tpu_torch.plonk import kzg10
 from zkvm_tpu_torch.plonk.errors import (DegreeIsZero, PolynomialDegreeIsZero,
                                          PolynomialDegreeTooLarge,
                                          TruncatedDegreeIsZero,
                                          TruncatedDegreeTooLarge)
+from zkvm_tpu_torch.rng import StdRng as PStdRng
 
 torch.set_num_threads(1)
 
@@ -29,15 +34,16 @@ DEGREE = 24
 
 @pytest.fixture(scope="module")
 def params():
-    port = kzg10.PublicParameters.setup(DEGREE, StdRng(17), "cpu")
+    port = kzg10.PublicParameters.setup(DEGREE, PStdRng(17), "cpu")
     ref = rkzg.PublicParameters.setup(DEGREE, StdRng(17))
     return port, ref
 
 
-def _coeffs(n, seed):
+def _coeffs(n, seed, cls=PFr):
+    """n seeded field elements as `cls` (the port's Fr or the reference's)."""
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.uint64).tolist()
-    return [Fr(sum(int(w) << (63 * k) for k, w in enumerate(row)))
+    return [cls(sum(int(w) << (63 * k) for k, w in enumerate(row)))
             for row in words]
 
 
@@ -66,9 +72,9 @@ def test_commit_matches_reference(params):
     port, ref = params
     ck, rck = port.commit_key, ref.commit_key
     polys = [_coeffs(ck.max_degree() + 1, 40), _coeffs(5, 41)]
-    polys[1] += [Fr.zero()] * 3  # trailing zeros do not raise the degree
+    polys[1] += [PFr.zero()] * 3  # trailing zeros do not raise the degree
     got = ck.commit_many(polys)
-    want = [rck.commit(Polynomial(p)) for p in polys]
+    want = [rck.commit(Polynomial([Fr(c.value) for c in p])) for p in polys]
     assert [c.to_bytes() for c in got] == [c.to_bytes() for c in want]
     assert ck.commit(polys[1]) == got[1]
 
@@ -77,11 +83,11 @@ def test_degree_errors(params):
     port, _ = params
     ck = port.commit_key
     with pytest.raises(DegreeIsZero):
-        kzg10.PublicParameters.setup(0, StdRng(1), "cpu")
+        kzg10.PublicParameters.setup(0, PStdRng(1), "cpu")
     with pytest.raises(PolynomialDegreeIsZero):
-        ck.commit([Fr(5)])
+        ck.commit([PFr(5)])
     with pytest.raises(PolynomialDegreeIsZero):
-        ck.commit([Fr(5), Fr.zero()])
+        ck.commit([PFr(5), PFr.zero()])
     with pytest.raises(PolynomialDegreeTooLarge):
         ck.commit(_coeffs(ck.max_degree() + 2, 3))
     too_long = torch.zeros((8, ck.max_degree() + 2), dtype=torch.int32)
@@ -110,11 +116,11 @@ def test_trim_and_key_round_trips(params):
 
 
 def test_commitment_encoding():
-    from zkvm_tpu.curves.g1 import G1Affine
-
-    c = kzg10.Commitment(G1Affine.generator())
+    c = kzg10.Commitment(PG1Affine.generator())
     assert kzg10.Commitment.from_bytes(c.to_bytes()) == c
     assert len(c.to_bytes()) == 48
     assert kzg10.Commitment.identity().point.is_identity()
-    powers = kzg10.powers_of(Fr(10), 5)
-    assert powers == [Fr(10).pow(i) for i in range(6)]
+    powers = kzg10.powers_of(PFr(10), 5)
+    assert [p.value for p in powers] == [Fr(10).pow(i).value
+                                         for i in range(6)]
+    assert c.to_bytes() == rkzg.Commitment(RG1Affine.generator()).to_bytes()

@@ -1,10 +1,12 @@
 """zkvm_tpu_torch.ops.msm against the host MSM and the JAX pipeline.
 
 The port adds points in another order than zkvm_tpu (a log-depth scan),
-so MSM results are compared as group elements: against
-`curves.msm.msm_variable_base` and, for the halving tree, against the JAX
-`_msm_ptree_pipeline` + `_host_window_fold` on the same numpy-seeded
-inputs.  Signed digits are integers and must match exactly.
+so MSM results are compared as group elements, through canonical bytes:
+against zkvm_tpu's `curves.msm.msm_variable_base` and, for the halving
+tree, against the JAX `_msm_ptree_pipeline` + `_host_window_fold` on the
+same numpy-seeded inputs.  Signed digits are integers and must match
+exactly.  The port gets its own host points and scalars; the reference gets
+the same values as its classes.
 """
 
 import numpy as np
@@ -13,9 +15,12 @@ import torch
 
 import jax
 
-from zkvm_tpu.curves.g1 import G1Projective
-from zkvm_tpu.curves.msm import msm_variable_base
-from zkvm_tpu.fields import Fr
+from zkvm_tpu.curves.g1 import G1Affine as RG1Affine
+from zkvm_tpu.curves.msm import msm_variable_base as ref_msm_variable_base
+from zkvm_tpu.fields import Fp as RFp
+from zkvm_tpu.fields import Fr as RFr
+from zkvm_tpu_torch.curves.g1 import G1Projective
+from zkvm_tpu_torch.fields import Fr
 from zkvm_tpu.ops import limb_field as rlf
 from zkvm_tpu.ops import msm as rmsm
 from zkvm_tpu_torch.ops import limb_field as lf
@@ -42,6 +47,19 @@ def _scalars(n, seed):
     words = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.uint64).tolist()
     return [Fr(sum(int(w) << (63 * k) for k, w in enumerate(row)))
             for row in words]
+
+
+def _ref_points(points):
+    """The same affine points as the reference's class."""
+    return [RG1Affine.identity() if p.infinity
+            else RG1Affine(RFp(p.x.value), RFp(p.y.value)) for p in points]
+
+
+def _ref_msm_bytes(points, scalars) -> bytes:
+    """zkvm_tpu's host MSM of the same points and scalars, compressed."""
+    want = ref_msm_variable_base(_ref_points(points),
+                                 [RFr(s.value) for s in scalars])
+    return want.to_affine().to_bytes()
 
 
 def _adversarial(scalars):
@@ -73,7 +91,8 @@ def test_scan_path_matches_host():
     points[12] = -points[13]
     scalars = _adversarial(_scalars(n, 2))
     ctx = msm.MSMContext(points, "cpu")
-    assert ctx.msm(scalars) == msm_variable_base(points, scalars)
+    assert (ctx.msm(scalars).to_affine().to_bytes()
+            == _ref_msm_bytes(points, scalars))
 
 
 def test_ptree_pipeline_forced_matches_jax_and_host():
@@ -91,14 +110,14 @@ def test_ptree_pipeline_forced_matches_jax_and_host():
     sums = msm._msm_ptree_pipeline(c, pm, pinf, limbs)
     got = msm._fold_windows(sums, c, 1, [n])[0]
 
-    rctx = rmsm.MSMContext(points)
+    rctx = rmsm.MSMContext(_ref_points(points))
     _, rpinf, rpm = rctx._padded(n)
     rlimbs = rlf.FR.to_raw_array([s.value for s in scalars])[None]
     rsums = rmsm._msm_ptree_pipeline(c, rpm, rpinf, rlimbs)
     host = [np.asarray(t) for t in jax.device_get(rsums)]
     want = rmsm._host_window_fold(host, c, host[0].shape[0], 1, [n])[0]
-    assert got == want
-    assert got == msm_variable_base(points, scalars)
+    assert got.to_affine().to_bytes() == want.to_affine().to_bytes()
+    assert got.to_affine().to_bytes() == _ref_msm_bytes(points, scalars)
 
 
 def test_multi_set_prefixes_match_host():
@@ -108,4 +127,5 @@ def test_multi_set_prefixes_match_host():
     sets = [_scalars(k, 6 + k) for k in (300, 211, 77)] + [[]]
     got = msm.MSMContext(points, "cpu").msm_many(sets)
     for g, s in zip(got, sets):
-        assert g == msm_variable_base(points[:len(s)], s)
+        assert (g.to_affine().to_bytes()
+                == _ref_msm_bytes(points[:len(s)], s))

@@ -1,5 +1,6 @@
 // Device arithmetic over the BLS12-381 scalar field Fr (8 x 32-bit limbs)
-// and base field Fq (12 x 32-bit limbs), and the complete G1 addition.
+// and base field Fq (12 x 32-bit limbs), the complete G1 addition, and the
+// split-fold reduction of the matmul NTT.
 //
 // Elements are little-endian uint32 limbs in Montgomery form with
 // R = 2^(32 N), held in registers.  Every function returns a fully reduced
@@ -26,6 +27,20 @@ struct Fr {
     constexpr uint32_t v[N] = {0x00000001, 0xffffffff, 0xfffe5bfe,
                                0x53bda402, 0x09a1d805, 0x3339d808,
                                0x299d7d48, 0x73eda753};
+    return v[i];
+  }
+  // 2^256 * R mod r and 2^512 * R mod r (R = 2^256): the Montgomery product
+  // with them multiplies by 2^256 and 2^512 (the split-fold constants)
+  __device__ __forceinline__ static uint32_t k1(int i) {
+    constexpr uint32_t v[N] = {0xf3f29c6d, 0xc999e990, 0x87925c23,
+                               0x2b6cedcb, 0x7254398f, 0x05d31496,
+                               0x9f59ff11, 0x0748d9d9};
+    return v[i];
+  }
+  __device__ __forceinline__ static uint32_t k2(int i) {
+    constexpr uint32_t v[N] = {0x439b73af, 0xc62c1807, 0x8cf06990,
+                               0x1b3e0d18, 0xc7b5f418, 0x73d13c71,
+                               0xc8db33e9, 0x6e2a5bb9};
     return v[i];
   }
 };
@@ -147,6 +162,35 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
     t[N] = t[N + 1] + (uint32_t)(s >> 32);
   }
   reduce_once<F>(r, t, t[N]);  // t < 2p
+}
+
+// r = v mod r for a 17-word value v = lo + 2^256 mid + 2^512 hi (lo, mid of
+// 8 words, hi of one): the split-fold of the reference's `_fold_body`
+// (zkvm_tpu/ops/ntt_mxu.py), lo mod r + mid * 2^256 + hi * 2^512.
+//   * lo < 2^256 < 3r, so two conditional subtractions reduce it;
+//   * mid is ANY 256-bit value, not below r.  The CIOS product still lands
+//     below 2r, as `mont_mul`'s closing reduce_once needs: with a < R and
+//     the constant b < r, (a b + m r) / R < (R r + R r) / R = 2r.  So the
+//     unreduced word vector goes in as `a` and the constant as `b`.
+__device__ __forceinline__ void split_fold(uint32_t* r, const uint32_t* v) {
+  constexpr int N = Fr::N;
+  uint32_t lo[N], k[N], t[N], hi[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) lo[j] = v[j];
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) reduce_once<Fr>(lo, lo, 0u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) k[j] = Fr::k1(j);
+  mont_mul<Fr>(t, v + N, k);
+  add<Fr>(lo, lo, t);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    k[j] = Fr::k2(j);
+    hi[j] = 0;
+  }
+  hi[0] = v[2 * N];
+  mont_mul<Fr>(t, hi, k);
+  add<Fr>(r, lo, t);
 }
 
 // ---- G1 (homogeneous projective over Fq, Montgomery coordinates) ----------

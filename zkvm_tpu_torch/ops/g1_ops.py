@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zkvm_tpu.curves.g1 import G1Affine, G1Projective
-from zkvm_tpu.fields import Fp
+from ..curves.g1 import G1Affine, G1Projective
+from ..fields import Fp
 
 from . import kernels
 from . import limb_field as lf

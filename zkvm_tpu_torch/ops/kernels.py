@@ -1,14 +1,18 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Three kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Six kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas`
   * `padd`         replaces `pallas_field.padd_pallas_2l`
   * `window_fold`  replaces `pallas_field.window_fold_pallas`
+  * `butterfly`    replaces `pallas_field.butterfly_pallas`
+  * `carry_fold`   replaces `ntt_mxu._carry_fold_pallas`
+  * `fold`         replaces `ntt_mxu._fold_pallas`
 
-They are compiled with `nvcc` into one shared library with a plain C
-interface on first use (never at import), cached under
-`zkvm_tpu_torch/build/` by a hash of the sources, and bound with ctypes.
+They are compiled with `nvcc` (one process per source, all started
+together) and linked into one shared library with a plain C interface on
+first use (never at import), cached under `zkvm_tpu_torch/build/` by a hash
+of the sources, and bound with ctypes.
 
 Each wrapper checks dtype, shape, device and contiguity, allocates its
 outputs, launches on the current stream and adds one to `LAUNCHES[name]`.
@@ -27,19 +31,22 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from . import limb_field as lf
-from .limb_field import FQ
+from .limb_field import FQ, FR
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-_SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu")
+_SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
+            "ntt_fold.cu")
 _HEADERS = ("common.cuh", "field.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"mont_mul": 0, "padd": 0, "window_fold": 0}
+LAUNCHES = {"mont_mul": 0, "padd": 0, "window_fold": 0, "butterfly": 0,
+            "carry_fold": 0, "fold": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -78,21 +85,39 @@ def build() -> float:
     so = BUILD_DIR / f"libzkvm_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")  # concurrent builds
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp),
-               *(str(CSRC / s) for s in _SOURCES)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = r.stdout + r.stderr
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"  # concurrent builds
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
+             str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(_SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        BUILD_LOG = "".join(logs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
+        tmp = BUILD_DIR / f"link.{tag}.tmp"
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *(str(o) for o in objs)],
+                           capture_output=True, text=True)
+        BUILD_LOG += r.stdout + r.stderr
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_LOG}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{BUILD_LOG}")
         tmp.replace(so)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(so))
     lib.zk_mont_mul.argtypes = [_I, _P, _P, _P, _LL, _LL, _P]
     lib.zk_padd.argtypes = [_P] * 9 + [_LL, _LL, _P]
     lib.zk_window_fold.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_window_fold):
+    lib.zk_butterfly.argtypes = [_P] * 5 + [_LL, _LL, _LL, _P]
+    lib.zk_carry_fold.argtypes = [_P, _P, _LL, _P]
+    lib.zk_fold.argtypes = [_P, _P, _LL, _P]
+    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_window_fold,
+               lib.zk_butterfly, lib.zk_carry_fold, lib.zk_fold):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -254,3 +279,141 @@ def window_fold(c: int, w_count: int, n_sets: int, x, y, z) -> torch.Tensor:
                 y.data_ptr(), z.data_ptr(), out.data_ptr(), c, w_count,
                 n_sets, _stream(dev))
     return out
+
+
+# -----------------------------------------------------------------------------
+# butterfly
+# -----------------------------------------------------------------------------
+
+def butterfly_plain(even: torch.Tensor, odd: torch.Tensor, tw: torch.Tensor):
+    """Plain version of the butterfly kernel."""
+    e = lf.split16(even)
+    t = lf.mont_mul16(FR, lf.split16(odd), lf.split16(tw))
+    return lf.join16(lf.add16(FR, e, t)), lf.join16(lf.sub16(FR, e, t))
+
+
+def butterfly(even: torch.Tensor, odd: torch.Tensor, tw: torch.Tensor):
+    """(even + tw * odd, even - tw * odd) over Fr on [..., 8, B] int32
+    tensors.  `tw` is shaped like the operands, or one [8, B] table shared
+    by every leading group."""
+    dev = _check("butterfly", (even, odd), even.shape, FR.n_limbs)
+    shared = tw.dim() == 2 and even.dim() > 2
+    if _check("butterfly", (tw,), even.shape[-2:] if shared else even.shape,
+              FR.n_limbs) != dev:
+        raise ValueError(f"butterfly: twiddles on {tw.device}, operands on "
+                         f"{dev}")
+    if dev.type == "cpu":
+        return butterfly_plain(even, odd, tw)
+    plus, minus = torch.empty_like(even), torch.empty_like(even)
+    if even.numel() == 0:
+        return plus, minus
+    build()
+    lanes = even.shape[-1]
+    groups = even.numel() // (FR.n_limbs * lanes)
+    with torch.cuda.device(dev):
+        _launch("butterfly", _lib.zk_butterfly, even.data_ptr(),
+                odd.data_ptr(), tw.data_ptr(), plus.data_ptr(),
+                minus.data_ptr(), groups, lanes,
+                0 if shared else FR.n_limbs * lanes, _stream(dev))
+    return plus, minus
+
+
+# -----------------------------------------------------------------------------
+# carry_fold and fold (the leaf reductions of the matmul NTT)
+# -----------------------------------------------------------------------------
+
+N_COLUMNS = 68               # byte columns of one reassembled product
+N_WORDS = N_COLUMNS // 4     # 17 carried 32-bit words
+
+# split-fold constants: value = lo + 2^256 mid + 2^512 hi, and the Montgomery
+# product with K1 = 2^256 R mod r (K2 = 2^512 R mod r) multiplies by 2^256
+# (2^512)
+K1 = lf.int_to_limbs((1 << 256) * FR.R % FR.modulus, FR.n_limbs)
+K2 = lf.int_to_limbs((1 << 512) * FR.R % FR.modulus, FR.n_limbs)
+
+
+def _check_rows(name: str, t: torch.Tensor, rows: int) -> torch.device:
+    """Validate a row-major [rows, ...] kernel operand."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dim() < 2 or t.shape[0] != rows:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} is not "
+                         f"[{rows}, ...]")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def fold16(w: torch.Tensor) -> torch.Tensor:
+    """Split-fold of canonical 16-bit limbs [34, ...] int64 -> [16, ...]
+    mod r: lo mod r + mid * 2^256 + hi * 2^512.  lo < 2^256 < 3r takes two
+    conditional subtractions; mid is any 256-bit value, and its product
+    with K1 < r still lands below 2r, which `mont_mul16` reduces."""
+    n = 2 * FR.n_limbs
+    lo, mid = w[:n], w[n:2 * n]
+    hi = F.pad(w[2 * n:], (0, 0) * (w.dim() - 1) + (0, 3 * n - w.shape[0]))
+    for _ in range(2):
+        lo = lf._reduce_once(FR, lf._with_top(lo.unsqueeze(0))).squeeze(0)
+    y = lf.add16(FR, lo, lf.mont_mul16(FR, mid, lf.const16(FR, K1, w)))
+    return lf.add16(FR, y, lf.mont_mul16(FR, hi, lf.const16(FR, K2, w)))
+
+
+def carry_bytes(d: torch.Tensor) -> torch.Tensor:
+    """The byte carry over [68, B] int32 columns -> [17, B] int32 carried
+    words (the reference's carry scan, arithmetic shifts included)."""
+    cols = d.to(torch.int64)
+    carry = torch.zeros_like(cols[0])
+    words = []
+    for w in range(N_WORDS):
+        word = torch.zeros_like(carry)
+        for k in range(4):
+            c = cols[4 * w + k] + carry
+            word = word | ((c & 0xFF) << (8 * k))
+            carry = c >> 8
+        words.append(word)
+    v = torch.stack(words)
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def fold_plain(limbs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fold kernel."""
+    flat = limbs.reshape(N_WORDS, -1)
+    out = lf.join16(fold16(lf.split16(flat)))
+    return out.reshape((FR.n_limbs,) + limbs.shape[1:])
+
+
+def carry_fold_plain(d: torch.Tensor) -> torch.Tensor:
+    """Plain version of the carry_fold kernel."""
+    return fold_plain(carry_bytes(d))
+
+
+def _launch_rows(name: str, t: torch.Tensor, dev) -> torch.Tensor:
+    """Launch `zk_<name>` over the lanes of a [rows, ...] operand."""
+    out = torch.empty((FR.n_limbs,) + t.shape[1:], dtype=torch.int32,
+                      device=dev)
+    if t.numel() == 0:
+        return out
+    build()
+    with torch.cuda.device(dev):
+        _launch(name, getattr(_lib, "zk_" + name), t.data_ptr(),
+                out.data_ptr(), t.numel() // t.shape[0], _stream(dev))
+    return out
+
+
+def carry_fold(d: torch.Tensor) -> torch.Tensor:
+    """[68, ...] int32 byte columns (non-negative, below 2^29) -> [8, ...]
+    int32 limbs of the value sum_t d[t] 2^(8t) mod r."""
+    dev = _check_rows("carry_fold", d, N_COLUMNS)
+    if dev.type == "cpu":
+        return carry_fold_plain(d)
+    return _launch_rows("carry_fold", d, dev)
+
+
+def fold(limbs: torch.Tensor) -> torch.Tensor:
+    """[17, ...] int32 carried words -> [8, ...] int32 limbs mod r."""
+    dev = _check_rows("fold", limbs, N_WORDS)
+    if dev.type == "cpu":
+        return fold_plain(limbs)
+    return _launch_rows("fold", limbs, dev)

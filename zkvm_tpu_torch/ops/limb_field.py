@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zkvm_tpu import params
+from .. import params
 
 LIMB_BITS = 32
 M16 = 0xFFFF
@@ -84,6 +84,17 @@ class FieldSpec:
         """Montgomery limbs of a host constant."""
         return int_to_limbs(value % self.modulus * self.R % self.modulus,
                             self.n_limbs)
+
+    def to_mont_array_np(self, values) -> np.ndarray:
+        """Canonical ints -> Montgomery limbs [L, N] as uint32 numpy, on
+        the host alone (for tables that are built once and lifted)."""
+        nbytes = 4 * self.n_limbs
+        r, p = self.R, self.modulus
+        buf = b"".join((int(v) % p * r % p).to_bytes(nbytes, "little")
+                       for v in values)
+        flat = np.frombuffer(buf, dtype="<u4").reshape(len(values),
+                                                       self.n_limbs)
+        return np.ascontiguousarray(flat.T)
 
     # ---- host <-> device conversion (canonical ints <-> limb tensors) ----
     def to_raw_array(self, values, device) -> torch.Tensor:
@@ -152,6 +163,19 @@ def to_reference(t: torch.Tensor, spec: FieldSpec) -> np.ndarray:
     out[..., 0::2, :] = v & np.uint32(M16)
     out[..., 1::2, :] = v >> np.uint32(16)
     return out
+
+
+def from_reference_lead(arr, spec: FieldSpec, device) -> torch.Tensor:
+    """Reference limb-LEADING batches ([2L, *lead, n] uint32, the layout of
+    its matmul NTT) -> the port's [*lead, L, n] int32 (limbs always at -2),
+    for any number of leading batch axes."""
+    a = np.asarray(arr, dtype=np.uint32)
+    return from_reference(np.moveaxis(a, 0, -2), spec, device)
+
+
+def to_reference_lead(t: torch.Tensor, spec: FieldSpec) -> np.ndarray:
+    """Inverse of `from_reference_lead`: [*lead, L, n] -> [2L, *lead, n]."""
+    return np.ascontiguousarray(np.moveaxis(to_reference(t, spec), -2, 0))
 
 
 def split16(t: torch.Tensor) -> torch.Tensor:

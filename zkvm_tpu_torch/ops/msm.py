@@ -29,8 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from zkvm_tpu.curves.g1 import G1Affine, G1Projective
-from zkvm_tpu.fields import Fp, Fr
+from ..curves.g1 import G1Affine, G1Projective
+from ..fields import Fp, Fr
 
 from . import g1_ops, kernels
 from . import limb_field as lf

@@ -1,4 +1,5 @@
-"""The error classes that `kzg10` raises, with the reference's messages.
+"""The error classes that `kzg10` and `ops.ntt` raise, with the reference's
+messages.
 
 Copies of the matching classes in `zkvm_tpu/plonk/errors.py` (which cannot
 be imported without JAX: `zkvm_tpu.plonk` imports the device prover).
@@ -37,3 +38,17 @@ class PolynomialDegreeTooLarge(PlonkError):
 class PolynomialDegreeIsZero(PlonkError):
     def __init__(self):
         super().__init__("cannot commit to polynomial of zero degree")
+
+
+class InvalidEvalDomainSize(PlonkError):
+    def __init__(self, log_size_of_group: int, adacity: int):
+        super().__init__(
+            f"Log-size of the EvaluationDomain group > TWO_ADACITY "
+            f"Size: {log_size_of_group} > TWO_ADACITY = {adacity}")
+        self.log_size_of_group = log_size_of_group
+        self.adacity = adacity
+
+
+class PairingCheckFailure(PlonkError):
+    def __init__(self):
+        super().__init__("pairing check failed")

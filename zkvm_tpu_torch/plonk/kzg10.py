@@ -5,23 +5,27 @@ Counterpart of `zkvm_tpu/plonk/kzg10.py`, with the same byte layouts
 commitment runs the device MSM (`zkvm_tpu_torch.ops.msm`) on the key's
 device, and the SRS setup runs the device fixed-base multiplication
 (`g1_ops.batch_scalar_mul_base`) with the reference's RNG draws in the
-reference's order, so one seed gives byte-identical keys.  Opening and
-pairing code comes with the prover.
+reference's order, so one seed gives byte-identical keys.  The opening
+checks run on the host through the port's own pairing (`curves.pairing`,
+`native`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from zkvm_tpu.curves.g1 import G1Affine, G1Projective
-from zkvm_tpu.curves.g2 import G2Affine
-from zkvm_tpu.fields import Fr
+from ..curves.g1 import G1Affine, G1Projective
+from ..curves.g2 import G2Affine
+from ..curves.pairing import (G2Prepared, Gt, final_exponentiation,
+                              multi_miller_loop)
+from ..fields import Fr
 
 from ..ops import g1_ops
 from ..ops.msm import MSMContext
-from .errors import (DegreeIsZero, PolynomialDegreeIsZero,
-                     PolynomialDegreeTooLarge, TruncatedDegreeIsZero,
-                     TruncatedDegreeTooLarge)
+from .errors import (DegreeIsZero, PairingCheckFailure,
+                     PolynomialDegreeIsZero, PolynomialDegreeTooLarge,
+                     TruncatedDegreeIsZero, TruncatedDegreeTooLarge)
+from .polynomial import Polynomial
 
 
 def powers_of(x: Fr, degree: int) -> list[Fr]:
@@ -84,6 +88,44 @@ class Commitment:
         return f"Commitment({self.point!r})"
 
 
+class KZGProof:
+    """Single-point opening proof (kzg10/proof.rs Proof)."""
+
+    __slots__ = ("commitment_to_witness", "evaluated_point",
+                 "commitment_to_polynomial")
+
+    def __init__(self, commitment_to_witness: Commitment, evaluated_point: Fr,
+                 commitment_to_polynomial: Commitment):
+        self.commitment_to_witness = commitment_to_witness
+        self.evaluated_point = evaluated_point
+        self.commitment_to_polynomial = commitment_to_polynomial
+
+
+class AggregateProof:
+    """Aggregated same-point openings (kzg10/proof.rs AggregateProof)."""
+
+    def __init__(self, witness: Commitment):
+        self.commitment_to_witness = witness
+        self.evaluated_points: list[Fr] = []
+        self.commitments_to_polynomials: list[Commitment] = []
+
+    def add_part(self, evaluation: Fr, commitment: Commitment):
+        self.evaluated_points.append(evaluation)
+        self.commitments_to_polynomials.append(commitment)
+
+    def flatten(self, v_challenge: Fr) -> KZGProof:
+        powers = powers_of(v_challenge,
+                           len(self.commitments_to_polynomials) - 1)
+        acc = G1Projective.identity()
+        for comm, p in zip(self.commitments_to_polynomials, powers):
+            acc = acc + comm.point * p
+        flattened_eval = Fr.zero()
+        for ev, p in zip(self.evaluated_points, powers):
+            flattened_eval = flattened_eval + ev * p
+        return KZGProof(self.commitment_to_witness, flattened_eval,
+                        Commitment(acc))
+
+
 class CommitKey:
     """Powers-of-tau commit key (kzg10/key.rs:32-147) bound to a device."""
 
@@ -97,10 +139,11 @@ class CommitKey:
     @classmethod
     def from_reference(cls, ref, device) -> "CommitKey":
         """A key from the JAX package: its CommitKey (anything with
-        `powers_of_g`) or the bytes of its `to_raw_var_bytes()`."""
-        if isinstance(ref, (bytes, bytearray)):
-            return cls.from_slice_unchecked(bytes(ref), device)
-        return cls(list(ref.powers_of_g), device)
+        `to_raw_var_bytes()`) or those bytes.  The two packages have
+        separate point classes, so the key crosses over as bytes."""
+        if not isinstance(ref, (bytes, bytearray)):
+            ref = ref.to_raw_var_bytes()
+        return cls.from_slice_unchecked(bytes(ref), device)
 
     def max_degree(self) -> int:
         return len(self.powers_of_g) - 1
@@ -144,6 +187,18 @@ class CommitKey:
         return [Commitment(r)
                 for r in _device_ctx(self).msm_many_mont(list(tensors))]
 
+    @staticmethod
+    def compute_aggregate_witness(polynomials: list[Polynomial], point: Fr,
+                                  v_challenge: Fr) -> Polynomial:
+        """The host form of the opening witness: sum_i v^i p_i divided by
+        (X - point).  The device form is `dpoly.lin_comb` +
+        `dpoly.ruffini_device`."""
+        powers = powers_of(v_challenge, len(polynomials) - 1)
+        numerator = Polynomial.zero()
+        for poly, v in zip(polynomials, powers):
+            numerator = numerator + poly.scale(v)
+        return numerator.ruffini(point)
+
     # -- serialization (key.rs:38-82) -----------------------------------------
     def to_raw_var_bytes(self) -> bytes:
         head = len(self.powers_of_g).to_bytes(8, "little")
@@ -168,8 +223,7 @@ class CommitKey:
 
 
 class OpeningKey:
-    """Verifier key for single openings (kzg10/key.rs:157-255): the fields
-    and encoding only; the pairing checks come with the verifier."""
+    """Verifier key for single openings (kzg10/key.rs:157-255)."""
 
     SIZE = G1Affine.SIZE + 2 * G2Affine.SIZE  # 48 + 192
 
@@ -177,9 +231,70 @@ class OpeningKey:
         self.g = g
         self.h = h
         self.x_h = x_h
+        self.prepared_h = G2Prepared(h)
+        self.prepared_x_h = G2Prepared(x_h)
 
     def to_bytes(self) -> bytes:
         return self.g.to_bytes() + self.h.to_bytes() + self.x_h.to_bytes()
+
+    @classmethod
+    def from_bytes(cls, buf: bytes):
+        if len(buf) != cls.SIZE:
+            return None
+        g = G1Affine.from_bytes(buf[:48])
+        h = G2Affine.from_bytes(buf[48:144])
+        x_h = G2Affine.from_bytes(buf[144:240])
+        if g is None or h is None or x_h is None:
+            return None
+        return cls(g, h, x_h)
+
+    def check(self, point: Fr, proof: KZGProof) -> bool:
+        """Single-opening pairing check (key.rs test helper `check`, also the
+        shape used by Proof::verify's final equation)."""
+        inner_a = (proof.commitment_to_polynomial.point.to_projective()
+                   - self.g * proof.evaluated_point).to_affine()
+        inner_b = (self.x_h.to_projective() - self.h * point).to_affine()
+        prepared_inner_b = G2Prepared(-inner_b)
+        result = final_exponentiation(multi_miller_loop([
+            (inner_a, self.prepared_h),
+            (proof.commitment_to_witness.point, prepared_inner_b),
+        ]))
+        return result == Gt.identity()
+
+    def batch_check(self, points: list[Fr], proofs: list[KZGProof],
+                    transcript) -> bool:
+        """Batched pairing check with a transcript-drawn separation challenge
+        (key.rs:215-255).  `transcript` is anything with
+        `challenge_scalar(label) -> Fr`."""
+        total_c = G1Projective.identity()
+        total_w = G1Projective.identity()
+        u_challenge = transcript.challenge_scalar(b"batch")
+        powers = powers_of(u_challenge, len(proofs) - 1)
+        g_multiplier = Fr.zero()
+        for (proof, u), point in zip(zip(proofs, powers), points):
+            c = proof.commitment_to_polynomial.point.to_projective()
+            w = proof.commitment_to_witness.point
+            c = c + w * point
+            g_multiplier = g_multiplier + u * proof.evaluated_point
+            total_c = total_c + c * u
+            total_w = total_w + w * u
+        total_c = total_c - self.g * g_multiplier
+        affine_total_w = (-total_w).to_affine()
+        affine_total_c = total_c.to_affine()
+        from ..native import native_pairing_check
+
+        live = [(p, q) for p, q in ((affine_total_w, self.x_h),
+                                    (affine_total_c, self.h))
+                if not p.is_identity()]
+        ok = native_pairing_check(live) if live else True
+        if ok is None:
+            ok = final_exponentiation(multi_miller_loop([
+                (affine_total_w, self.prepared_x_h),
+                (affine_total_c, self.prepared_h),
+            ])) == Gt.identity()
+        if not ok:
+            raise PairingCheckFailure()  # key.rs:252
+        return True
 
 
 class PublicParameters:
