@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's KZG commitment path and the polynomial path of a prover
-round once on one NVIDIA GPU.
+"""Drive the port's KZG commitment path, the polynomial path of a prover
+round and the Poseidon/Merkle path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the six CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the eight CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
@@ -27,12 +27,22 @@ Phases (any failure exits non-zero; no phase catches its own error):
      butterfly transform and the unfused leaf reduction each redo a whole
      2^16 transform and must equal the matmul route bit for bit; sampled
      evaluations are checked against host big-int Horner;
-  6. transform times, both routes, 1 and 4 polynomials;
+  6. Merkle path: 4^10 seeded leaves -> PoseidonTree.from_leaves(10, ...,
+     "cuda") -> root, openings (verify true, false for a wrong leaf, wire
+     bytes round trip); 16 sampled nodes of every level and the root are
+     recomputed on the host by Hash.digest(Domain.Merkle4) from the
+     device's own children; then merkle_tree_levels alone at 4^12 leaves
+     made on the card, with the same sampled host check;
+  7. padd comparison: the 2^16 SRS points on the card summed by a halving
+     tree, once with padd and once with padd_ilp; both must equal the
+     native host sum;
+  8. transform times, both routes, 1 and 4 polynomials;
      with --profile, also where the device time goes (torch.profiler);
-  7. every kernel's launch count must be above zero.  The counts are set to
-     0 just before each region and read just after it; the regions are the
-     commitment path, one warm polynomial path, and the two whole-transform
-     cross-checks (the only callers of butterfly and fold), reported apart.
+  9. every kernel's launch count must be above zero in some region.  The
+     counts are set to 0 just before each region and read just after it;
+     the regions are the commitment path, one warm polynomial path, the two
+     whole-transform cross-checks (the only callers of butterfly and fold),
+     the Merkle path and the padd comparison, reported apart.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -54,11 +64,15 @@ import torch.nn.functional as F  # noqa: E402
 
 from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective  # noqa: E402
 from zkvm_tpu_torch.fields import Fp, Fr  # noqa: E402
+from zkvm_tpu_torch.hashes import Domain, Hash, hades_permute  # noqa: E402
+from zkvm_tpu_torch.merkle import (Item, PoseidonTree,  # noqa: E402
+                                   poseidon_opening_from_slice)
 from zkvm_tpu_torch.native import native_msm  # noqa: E402
-from zkvm_tpu_torch.ops import g1_ops, kernels, ntt, ntt_mxu  # noqa: E402
+from zkvm_tpu_torch.ops import (g1_ops, kernels, ntt, ntt_mxu,  # noqa: E402
+                                poseidon)
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk import dpoly  # noqa: E402
+from zkvm_tpu_torch.plonk import dpoly, kzg10  # noqa: E402
 from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
                                         PublicParameters, powers_of)
 from zkvm_tpu_torch.rng import StdRng  # noqa: E402
@@ -68,13 +82,19 @@ LOG_N = 16
 N = 1 << LOG_N
 N8 = 8 * N
 Q = FR.modulus
+MERKLE_HEIGHT = 10        # PoseidonTree.from_leaves: 4^10 leaves
+LEVELS_HEIGHT = 12        # merkle_tree_levels alone: 4^12 leaves
+HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
+# Fr products of one permutation: 8 full rounds of 15 + 25, 60 partial
+# rounds of 3 + 25
+HADES_PRODUCTS = 8 * (15 + 25) + 60 * (3 + 25)
 # the largest byte column the matmul route can make: 32 byte pairs, each a
 # sum of 256 products of 255 * 255
 WORST_COLUMN = 32 * 256 * 255 * 255
 
 # name -> (CUDA source, the Pallas kernel it replaces: mont_mul_pallas,
 # padd_pallas_2l, window_fold_pallas, butterfly_pallas, _carry_fold_pallas,
-# _fold_pallas)
+# _fold_pallas, hades_permute_pallas, padd_pallas_ilp / padd_pallas_ilp2l)
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -88,7 +108,13 @@ KERNELS = {
                    "zkvm_tpu/ops/ntt_mxu.py:199"),
     "fold": ("zkvm_tpu_torch/csrc/ntt_fold.cu",
              "zkvm_tpu/ops/ntt_mxu.py:165"),
+    "hades_permute": ("zkvm_tpu_torch/csrc/hades.cu",
+                      "zkvm_tpu/ops/pallas_field.py:308"),
+    "padd_ilp": ("zkvm_tpu_torch/csrc/padd_ilp.cu",
+                 "zkvm_tpu/ops/pallas_field.py:626"),
 }
+REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
+           "padd_comparison")
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
@@ -221,12 +247,17 @@ def phase_parity(rng, dev) -> dict:
     rhs[4] = -lhs[4]                             # P + (-P)
     p_cpu = g1_ops.affine_to_device(lhs, "cpu")
     q_cpu = g1_ops.affine_to_device(rhs, "cpu")
-    got = kernels.padd(tuple(t.to(dev) for t in p_cpu),
-                       tuple(t.to(dev) for t in q_cpu))
+    p_dev = tuple(t.to(dev) for t in p_cpu)
+    q_dev = tuple(t.to(dev) for t in q_cpu)
+    got = kernels.padd(p_dev, q_dev)
+    got_ilp = kernels.padd_ilp(p_dev, q_dev)
     err = max_abs_err(got, kernels.padd_plain(p_cpu, q_cpu))
+    err_ilp = max(max_abs_err(got_ilp, kernels.padd_ilp_plain(p_cpu, q_cpu)),
+                  max_abs_err(got_ilp, got))
     want = [(a.to_projective() + b.to_projective()) for a, b in zip(lhs, rhs)]
     for i in range(8):
-        if g1_ops.device_to_projective(got, i) != want[i]:
+        if not (g1_ops.device_to_projective(got, i) == want[i]
+                == g1_ops.device_to_projective(got_ilp, i)):
             raise AssertionError(f"padd lane {i} disagrees with the host")
     # slice shape: first halving-tree level of one 2^16 commitment
     shape = (24, 12, N // 2)
@@ -234,14 +265,28 @@ def phase_parity(rng, dev) -> dict:
               for _ in range(3))
     q = tuple(lf.u32_to_tensor(rand_field(FQ, shape, rng), dev)
               for _ in range(3))
-    err = max(err, max_abs_err(kernels.padd(p, q), kernels.padd_plain(p, q)))
+    want_plain = kernels.padd_plain(p, q)
+    got = kernels.padd(p, q)
+    got_ilp = kernels.padd_ilp(p, q)
+    err = max(err, max_abs_err(got, want_plain))
+    err_ilp = max(err_ilp, max_abs_err(got_ilp, want_plain),
+                  max_abs_err(got_ilp, got))
+    del want_plain, got, got_ilp
+    # 12 variable and 2 constant Montgomery products a lane, for both
+    # kernels; in turns: padd, padd_ilp, padd_ilp, padd
+    b = bound(9 * p[0].numel() * 4,
+              14 * mont_mul_ops(12) * p[0].numel() // 12)
     ms = cuda_ms(lambda: kernels.padd(p, q), 10)
+    ms_ilp = cuda_ms(lambda: kernels.padd_ilp(p, q), 10)
+    ms_ilp = (ms_ilp + cuda_ms(lambda: kernels.padd_ilp(p, q), 10)) / 2
+    ms = (ms + cuda_ms(lambda: kernels.padd(p, q), 10)) / 2
     plain_ms = cuda_ms(lambda: kernels.padd_plain(p, q), 1)
-    # 12 variable and 2 constant Montgomery products a lane
+    plain_ilp_ms = cuda_ms(lambda: kernels.padd_ilp_plain(p, q), 1)
     rec["padd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       shape="[24, 12, 32768]",
-                       **bound(9 * p[0].numel() * 4,
-                               14 * mont_mul_ops(12) * p[0].numel() // 12))
+                       shape="[24, 12, 32768]", **b)
+    rec["padd_ilp"] = dict(max_abs_err=err_ilp, ms=ms_ilp,
+                           plain_ms=plain_ilp_ms, shape="[24, 12, 32768]",
+                           **b)
     del p, q
 
     # -- window_fold: 4 sets x 24 windows, c = 11 (the 4-set commit), with
@@ -266,6 +311,7 @@ def phase_parity(rng, dev) -> dict:
                 n_sets * w_count * (c + 1) * 14 * mont_mul_ops(12)))
 
     phase_parity_ntt(rng, dev, rec)
+    phase_parity_hades(rng, dev, rec)
 
     for name, r in rec.items():
         log(f"parity {name}: max_abs_err={r['max_abs_err']} (tolerance 0: "
@@ -394,6 +440,41 @@ def phase_parity_ntt(rng, dev, rec) -> None:
                        shape=f"[17, {N}]",
                        **bound((kernels.N_WORDS + 8) * N * 4,
                                2 * mont_mul_ops(8) * N))
+
+
+def phase_parity_hades(rng, dev, rec) -> None:
+    """hades_permute against its plain version and the host permutation."""
+    # edge lanes on a ragged batch (CPU plain): the all-zero state, every
+    # word r - 1, and two lanes that are equal
+    lanes = 259
+    s = rand_field(FR, (5, 8, lanes), rng)
+    s[:, :, 0] = 0
+    s[:, :, 1] = lf.int_to_limbs(Q - 1, 8)
+    s[:, :, 3] = s[:, :, 2]
+    ts = lf.u32_to_tensor(s, "cpu")
+    consts = poseidon.hades_consts(dev)
+    got = kernels.hades_permute(ts.to(dev), consts)
+    err = max_abs_err(got, kernels.hades_permute_plain(ts, consts.cpu()))
+    if not torch.equal(got[:, :, 2], got[:, :, 3]):
+        raise AssertionError("hades_permute: equal lanes give unequal states")
+    # three lanes against the host permutation, through Montgomery form
+    ints = [FR.from_mont_array(ts[w, :, :3].contiguous()) for w in range(5)]
+    outs = [FR.from_mont_array(got[w, :, :3].contiguous()) for w in range(5)]
+    for j in range(3):
+        if [o[j] for o in outs] != hades_permute([v[j] for v in ints]):
+            raise AssertionError(f"hades_permute lane {j} disagrees with "
+                                 f"the host permutation")
+    # the permutation's own shape, [5, 8, 2^14]
+    st = lf.u32_to_tensor(rand_field(FR, (5, 8, HADES_LANES), rng), dev)
+    err = max(err, max_abs_err(kernels.hades_permute(st, consts),
+                               kernels.hades_permute_plain(st, consts)))
+    ms = cuda_ms(lambda: kernels.hades_permute(st, consts), 10)
+    plain_ms = cuda_ms(lambda: kernels.hades_permute_plain(st, consts), 1)
+    rec["hades_permute"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        shape=f"[5, 8, {HADES_LANES}]",
+        **bound(2 * st.numel() * 4,
+                HADES_PRODUCTS * mont_mul_ops(8) * HADES_LANES))
 
 
 def phase_matmul_exact(dev) -> None:
@@ -711,6 +792,230 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     return out
 
 
+def random_leaves(rng, n: int) -> list[int]:
+    """n values below r from the seeded numpy generator."""
+    blob = rng.bytes(32 * n)
+    return [int.from_bytes(blob[32 * i:32 * i + 32], "little") % Q
+            for i in range(n)]
+
+
+def digest4(children: list[int]) -> int:
+    """The host's Merkle4 digest of four canonical ints."""
+    return Hash.digest(Domain.Merkle4, [Fr(c) for c in children])[0].value
+
+
+def check_levels(levels, rng, what: str) -> None:
+    """16 sampled nodes of every level above the leaves, and the root,
+    recomputed on the host from the device's own children."""
+    dev = levels[0].device
+    n_checked = 0
+    for lower, upper in zip(levels, levels[1:]):
+        m = upper.shape[-1]
+        idx = sorted(set(rng.integers(0, m, 16).tolist()) | {0, m - 1})
+        it = torch.tensor(idx, device=dev)
+        kids = FR.from_mont_array(lower.index_select(
+            -1, (4 * it.unsqueeze(1) + torch.arange(4, device=dev)).flatten()))
+        nodes = FR.from_mont_array(upper.index_select(-1, it))
+        for k, node in enumerate(nodes):
+            if node != digest4(kids[4 * k:4 * k + 4]):
+                raise AssertionError(f"{what}: node {idx[k]} of a level of "
+                                     f"{m} disagrees with the host hash")
+        n_checked += len(idx)
+    log(f"{what}: {n_checked} sampled nodes over {len(levels) - 1} levels, "
+        f"the root among them, equal the host's Hash.digest(Merkle4) of the "
+        f"device's own children")
+
+
+def tree_node(tree, depth: int, index: int):
+    """The node `index` of the level `depth` below the root."""
+    node = tree.root_node
+    for d in range(depth):
+        node = node.children[index // 4 ** (depth - 1 - d) % 4]
+    return node
+
+
+def phase_merkle(rng, dev) -> dict:
+    """The Merkle path through PoseidonTree.from_leaves at 4^10 leaves, then
+    merkle_tree_levels alone at 4^12."""
+    out = {}
+    h = MERKLE_HEIGHT
+    n = 4 ** h
+    n_hashes = (n - 1) // 3
+    values = random_leaves(rng, n)
+    leaves = [Fr(v) for v in values]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    # ---- main path: leaves -> tree -> root -> openings ----
+    t0 = time.perf_counter()
+    tree = PoseidonTree.from_leaves(h, leaves, "cuda")
+    root = tree.root()
+    torch.cuda.synchronize()
+    out["from_leaves_s"] = time.perf_counter() - t0
+    positions = [0, 1, n - 1] + rng.integers(2, n - 1, 5).tolist()
+    t0 = time.perf_counter()
+    openings = [tree.opening(pos) for pos in positions]
+    verified = [o.verify(Item(leaves[pos]))
+                for o, pos in zip(openings, positions)]
+    out["openings_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # ---- end of main path ----
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # device time: the whole level-wise build (glue included) and the ten
+    # permutation launches alone, each at its level's shape
+    mont = FR.to_mont_array(values, dev)
+    consts = poseidon.hades_consts(dev)
+    levels_ms = cuda_ms(lambda: poseidon.merkle_tree_levels(mont), 3)
+    launch_ms = []
+    for k in range(h - 1, -1, -1):
+        st = lf.u32_to_tensor(rand_field(FR, (5, 8, 4 ** k), rng), dev)
+        launch_ms.append(cuda_ms(lambda: kernels.hades_permute(st, consts),
+                                 3 if k >= 8 else 20))
+    out["levels_ms"] = levels_ms
+    out["launches_ms"] = sum(launch_ms)
+    wall = out["from_leaves_s"]
+    log(f"merkle path, height {h}: {n} leaves, {n_hashes} permutations in "
+        f"{launches['hades_permute']} launches; from_leaves + root wall "
+        f"{wall:.3f} s = {n_hashes / wall:.1f} hashes/s; device time of the "
+        f"level-wise build {levels_ms:.3f} ms ({sum(launch_ms):.3f} ms in the "
+        f"{h} permutation launches: "
+        f"{', '.join(f'{ms:.4f}' for ms in launch_ms)}) = "
+        f"{n_hashes / levels_ms * 1e3:.1f} hashes/s; host share "
+        f"{1 - levels_ms / 1e3 / wall:.4f}; peak {out['peak_gib']:.3f} GiB; "
+        f"{len(positions)} openings + verify {out['openings_s']:.3f} s")
+    log(f"launches on the merkle path: {launches}")
+
+    # ---- checks ----
+    if not all(verified):
+        raise AssertionError("an opening of the tree does not verify")
+    for o, pos in zip(openings, positions):
+        if o.verify(Item(leaves[pos] + Fr.one())):
+            raise AssertionError("an opening verifies a wrong leaf")
+        wire = o.to_var_bytes()
+        back = poseidon_opening_from_slice(wire, h)
+        if not (back.verify(Item(leaves[pos])) and back.to_var_bytes() == wire
+                and back.root == root):
+            raise AssertionError("an opening does not survive its wire bytes")
+    log(f"openings: {len(positions)} verify, none verifies a wrong leaf, all "
+        f"survive to_var_bytes -> poseidon_opening_from_slice")
+    n_checked = 0
+    for depth in range(h):
+        m = 4 ** depth
+        for index in sorted(set(rng.integers(0, m, 16).tolist())):
+            node = tree_node(tree, depth, index)
+            kids = [c.item.hash.value for c in node.children]
+            if node.item.hash.value != digest4(kids):
+                raise AssertionError(f"tree node {index} at depth {depth} "
+                                     f"disagrees with the host hash")
+            n_checked += 1
+    if root != tree_node(tree, 0, 0).item:
+        raise AssertionError("root() is not the cached root node")
+    if [tree_node(tree, h, pos).item.hash for pos in positions] != [
+            leaves[pos] for pos in positions]:
+        raise AssertionError("the tree does not hold the leaves")
+    levels = poseidon.merkle_tree_levels(mont)
+    if FR.from_mont_array(levels[-1]) != [root.hash.value]:
+        raise AssertionError("merkle_tree_levels disagrees with the tree")
+    log(f"tree: {n_checked} sampled nodes on {h} levels, the root among "
+        f"them, equal the host's Hash.digest(Merkle4) of their children")
+    require_launched(launches, ("mont_mul", "hades_permute"), "merkle path")
+    out["launches"] = launches
+    del tree, openings, mont
+
+    # where from_leaves spends its wall time: its stages run again, apart
+    # (host clock, synchronised)
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    mont, to_s = timed(lambda: FR.to_mont_array(values, dev))
+    levels, levels_s = timed(lambda: poseidon.merkle_tree_levels(mont))
+    host_levels, from_s = timed(lambda: [
+        [Fr(v) for v in FR.from_mont_array(lvl)] for lvl in levels])
+    again = PoseidonTree(h)
+    _, insert_s = timed(lambda: [again.insert(i, Item(leaf, None))
+                                 for i, leaf in enumerate(leaves)])
+    _, install_s = timed(lambda: again._install_cached_hashes(host_levels))
+    if again.root() != root:
+        raise AssertionError("the staged rebuild disagrees with from_leaves")
+    log(f"stages of from_leaves at height {h}, run again apart: ints -> "
+        f"Montgomery tensor {to_s:.3f} s, level-wise build {levels_s:.3f} s, "
+        f"levels -> Fr objects {from_s:.3f} s, {n} inserts {insert_s:.3f} s, "
+        f"install the cached hashes {install_s:.3f} s")
+    del again, host_levels, leaves, values, mont, levels
+
+    # ---- merkle_tree_levels alone at 4^12, leaves made on the card ----
+    h2 = LEVELS_HEIGHT
+    n2 = 4 ** h2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = torch.randint(-(1 << 31), 1 << 31, (8, n2), generator=gen,
+                        device=dev, dtype=torch.int64).to(torch.int32)
+    big[-1] = torch.randint(0, int(FR.p_limbs[-1]), (n2,), generator=gen,
+                            device=dev, dtype=torch.int64).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    levels = poseidon.merkle_tree_levels(big)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del levels
+    dev_ms = cuda_ms(lambda: poseidon.merkle_tree_levels(big), 2)
+    wall_ms = host_ms(lambda: poseidon.merkle_tree_levels(big), 2)
+    st = torch.cat([big[:, :n2 // 4]] * 5).reshape(5, 8, n2 // 4)
+    top_ms = cuda_ms(lambda: kernels.hades_permute(st, consts), 2)
+    b = bound(2 * st.numel() * 4,
+              HADES_PRODUCTS * mont_mul_ops(8) * (n2 // 4))
+    del st
+    n_hashes2 = (n2 - 1) // 3
+    out["levels12_ms"] = dev_ms
+    log(f"merkle_tree_levels, height {h2}: {n2} leaves, {n_hashes2} "
+        f"permutations; first call {first_s:.3f} s, device {dev_ms:.3f} ms, "
+        f"wall {wall_ms:.3f} ms = {n_hashes2 / wall_ms * 1e3:.1f} hashes/s, "
+        f"peak {peak:.3f} GiB; hades_permute at [5, 8, {n2 // 4}]: "
+        f"{top_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+    check_levels(poseidon.merkle_tree_levels(big), rng,
+                 f"merkle_tree_levels at height {h2}")
+    return out
+
+
+def phase_padd_comparison(ck) -> dict:
+    """The 2^16 SRS points on the card summed to one point by a halving
+    tree, once with each addition kernel; both against the host sum."""
+    pts = tuple(t[:, :N].contiguous() for t in kzg10._device_ctx(ck).points)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    # ---- main path: one halving tree by each kernel ----
+    serial = g1_ops.device_to_projective(g1_ops.sum_lanes(pts, g1_ops.padd))
+    grouped = g1_ops.device_to_projective(
+        g1_ops.sum_lanes(pts, g1_ops.padd_ilp))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # ---- end of main path ----
+    want = native_commit(ck.powers_of_g[:N], [Fr.one()] * N)
+    if not (serial == want == grouped):
+        raise AssertionError("a halving-tree sum disagrees with the host sum")
+    times = {}
+    for name, add in (("padd", g1_ops.padd), ("padd_ilp", g1_ops.padd_ilp),
+                      ("padd_ilp again", g1_ops.padd_ilp),
+                      ("padd again", g1_ops.padd)):
+        # five sums are enqueued within the time the card spins
+        times[name] = (cuda_ms(lambda: g1_ops.sum_lanes(pts, add), 5),
+                       host_ms(lambda: g1_ops.sum_lanes(pts, add), 10))
+    log("padd comparison, 2^16 points summed by a halving tree (16 levels): "
+        + "; ".join(f"{name} device {d:.4f} ms, wall {w:.4f} ms"
+                    for name, (d, w) in times.items())
+        + "; both sums equal the native host sum")
+    log(f"launches of the padd comparison: {launches}")
+    require_launched(launches, ("mont_mul", "padd", "padd_ilp"),
+                     "padd comparison")
+    return dict(launches=launches)
+
+
 def host_ms(fn, reps: int) -> float:
     """Mean wall time of fn() (host work included), synchronised."""
     fn()
@@ -821,7 +1126,8 @@ def profiled(label: str, fn, top: int = 10) -> list[tuple[str, float, int]]:
 
 def phase_profile(rng, dev, ck, ok) -> None:
     """`--profile`: where the device time goes (torch.profiler) on one warm
-    polynomial path and on one 2^19 x 4 coset fft by each route, and each
+    polynomial path, on one 2^19 x 4 coset fft by each route and on the
+    level-wise tree build, and each
     kernel's device time per launch at the slice's shapes (its CUDA-event
     time above includes the wrapper's enqueue time, which exceeds the
     short kernels')."""
@@ -851,11 +1157,22 @@ def phase_profile(rng, dev, ck, ok) -> None:
     fv = field(FR, (8, N))
     fv = torch.cat([fv, fv, fv[:1]])  # [17, 2^16] words
 
+    # the level-wise tree build at 4^10 leaves: the permutation against the
+    # glue (permuted copy of the children, concatenation with the tag row)
+    leaves10 = field(FR, (8, 4 ** MERKLE_HEIGHT))
+    profiled(f"merkle_tree_levels, height {MERKLE_HEIGHT}",
+             lambda: poseidon.merkle_tree_levels(leaves10))
+    st = field(FR, (5, 8, HADES_LANES))
+    consts = poseidon.hades_consts(dev)
+
     from torch.profiler import ProfilerActivity, profile
 
     for label, fn in (
             ("mont_mul Fq [12, 65543]", lambda: kernels.mont_mul(FQ, a, b)),
             ("padd [24, 12, 32768]", lambda: kernels.padd(p, q)),
+            ("padd_ilp [24, 12, 32768]", lambda: kernels.padd_ilp(p, q)),
+            (f"hades_permute [5, 8, {HADES_LANES}]",
+             lambda: kernels.hades_permute(st, consts)),
             ("butterfly [8, 2^15]", lambda: kernels.butterfly(e, o, w)),
             ("butterfly [8, 2^18]", lambda: kernels.butterfly(e8, o8, w8)),
             ("carry_fold [68, 2^16]", lambda: kernels.carry_fold(d1)),
@@ -895,26 +1212,31 @@ def main() -> int:
     phase_matmul_exact(dev)
     sl = phase_slice(rng, dev)
     po = phase_poly(rng, dev, sl["commit_key"], sl["opening_key"])
+    me = phase_merkle(rng, dev)
+    pc = phase_padd_comparison(sl["commit_key"])
     phase_times(rng, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
 
-    # launches: the sum of the three counted regions, each also given apart;
-    # no single PyTorch call computes any of the six functions, so there is
+    # launches: the sum of the counted regions, each also given apart; no
+    # single PyTorch call computes any of the eight functions, so there is
     # no library time
+    regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
+                                 po["crosscheck"], me["launches"],
+                                 pc["launches"])))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": (sl["launches"][name] + po["launches"][name]
-                      + po["crosscheck"][name]),
-         "launches_commit_path": sl["launches"][name],
-         "launches_poly_path": po["launches"][name],
-         "launches_crosscheck": po["crosscheck"][name],
+         "launches": sum(r[name] for r in regions.values()),
+         **{f"launches_{region}": r[name] for region, r in regions.items()},
          "max_abs_err": rec[name]["max_abs_err"], "ms": rec[name]["ms"],
          "plain_ms": rec[name]["plain_ms"],
          "bound_ms": rec[name]["bound_ms"],
          "bound_by": rec[name]["bound_by"], "library_ms": None,
          "shape": rec[name]["shape"]} for name in KERNELS]}
+    for k in record["kernels"]:
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} was launched on no path")
     log(json.dumps(record))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's own host layer against zkvm_tpu's, value for value.
 
 zkvm_tpu_torch keeps copies of `params`, `fields`, `curves`, `rng`,
-`serialize` and `native`.  The two packages' classes are different types, so
+`serialize`, `native` and `hashes`.  The two packages' classes are different types, so
 every comparison here goes through Python ints or canonical bytes: the same
 numpy-seeded inputs enter both packages and the same integers or bytes must
 come out.  Exact equality throughout.
@@ -14,15 +14,23 @@ import pytest
 
 import zkvm_tpu.curves.g1 as rg1
 import zkvm_tpu.curves.g2 as rg2
+import zkvm_tpu.curves.hash_to_curve as rh2c
+import zkvm_tpu.curves.jubjub as rjubjub
 import zkvm_tpu.curves.msm as rmsm
 import zkvm_tpu.fields as rfields
+import zkvm_tpu.hashes as rhashes
+import zkvm_tpu.hashes.safe as rsafe
 import zkvm_tpu.native as rnative
 import zkvm_tpu.rng as rrng
 import zkvm_tpu.serialize as rserialize
 import zkvm_tpu_torch.curves.g1 as pg1
 import zkvm_tpu_torch.curves.g2 as pg2
+import zkvm_tpu_torch.curves.hash_to_curve as ph2c
+import zkvm_tpu_torch.curves.jubjub as pjubjub
 import zkvm_tpu_torch.curves.msm as pmsm
 import zkvm_tpu_torch.fields as pfields
+import zkvm_tpu_torch.hashes as phashes
+import zkvm_tpu_torch.hashes.safe as psafe
 import zkvm_tpu_torch.native as pnative
 import zkvm_tpu_torch.params as pparams
 import zkvm_tpu_torch.rng as prng
@@ -49,14 +57,15 @@ def _constants(module):
 
 
 @pytest.mark.parametrize("name", ["params", "curves.h2c_constants",
-                                  "curves.h2c_g2_constants"])
+                                  "curves.h2c_g2_constants",
+                                  "hashes.poseidon_constants"])
 def test_constants_equal(name):
     ref = _constants(importlib.import_module("zkvm_tpu." + name))
     port = _constants(importlib.import_module("zkvm_tpu_torch." + name))
     assert ref and ref == port
 
 
-@pytest.mark.parametrize("cls", ["Fr", "Fp"])
+@pytest.mark.parametrize("cls", ["Fr", "Fp", "JubjubFr"])
 def test_prime_field_ops_equal(cls):
     """add, sub, mul, neg, inverse, square root, pow and the byte encodings,
     with 0, 1 and p - 1 among the operands."""
@@ -202,3 +211,147 @@ def test_pairing_equal_and_bilinear():
         out.append((pairing._fp12_to_tuple(fast.value), checks))
     assert out[0] == out[1]
     assert out[1][1] == [True, True, False, False]
+
+
+def test_jubjub_fr_windowed_naf_equal():
+    out = []
+    for fields in (rfields, pfields):
+        out.append([fields.JubjubFr(v).compute_windowed_naf(w)
+                    for v in [0, 1, fields.JubjubFr.MODULUS - 1] + _ints(3, 6)
+                    for w in (2, 5)])
+    assert out[0] == out[1]
+
+
+def test_jubjub_group_law_and_encodings_equal():
+    ks = [0, 1, 2, pparams.JUBJUB_FR_MODULUS - 1] + _ints(3, 7, 250)
+    out = []
+    for fields, jj in ((rfields, rjubjub), (pfields, pjubjub)):
+        g = jj.JubjubExtended.generator()
+        pts = [g * fields.JubjubFr(k) for k in ks]
+        affine = jj.JubjubExtended.batch_normalize(pts)
+        enc = [a.to_bytes() for a in affine]
+        back = [jj.JubjubAffine.from_bytes(e).to_bytes() for e in enc]
+        total = jj.JubjubExtended.identity()
+        for p in pts:
+            total = total + p
+        niels = jj.ExtendedNielsPoint(pts[4]).add_to(pts[5])
+        secret = fields.JubjubFr(ks[5])
+        cipher = jj.ElgamalCipher.encrypt(secret, pts[4],
+                                          jj.JubjubExtended.generator_nums(),
+                                          pts[6])
+        out.append((enc, back, total.to_affine().to_bytes(),
+                    (pts[4] - pts[5]).to_affine().to_bytes(),
+                    pts[6].double().to_affine().to_bytes(),
+                    niels.to_affine().to_bytes(),
+                    [p.is_torsion_free() and p.is_on_curve() for p in pts],
+                    [h.value for h in pts[5].to_hash_inputs()],
+                    jj.dhke(secret, pts[6]).to_bytes(),
+                    cipher.to_bytes(),
+                    jj.ElgamalCipher.from_bytes(cipher.to_bytes())
+                    .decrypt(secret).to_affine().to_bytes(),
+                    jj.hash_to_point(b"zkvm").to_affine().to_bytes(),
+                    jj.JubjubAffine.from_bytes(b"\xff" * 32)))
+    assert out[0] == out[1]
+    assert out[1][0][0] == pjubjub.JubjubAffine.identity().to_bytes()
+
+
+def test_jubjub_map_to_point_round_trip_equal():
+    values = [0, 1, (1 << 64) - 1] + [v & ((1 << 64) - 1)
+                                      for v in _ints(3, 8)]
+    out = []
+    for jj in (rjubjub, pjubjub):
+        pts = [jj.map_to_point(v) for v in values]
+        assert [jj.unmap_from_point(p) for p in pts] == values
+        assert all(p.is_torsion_free() for p in pts)
+        out.append([p.to_affine().to_bytes() for p in pts])
+    assert out[0] == out[1]
+
+
+def test_hash_to_curve_g1_and_g2_equal():
+    dst = b"QUUX-V01-CS02-with-BLS12381G1_XMD:SHA-256_SSWU_RO_"
+    dst2 = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
+    out = []
+    for h2c in (rh2c, ph2c):
+        got = []
+        for msg in (b"", b"abc", bytes(range(200))):
+            got.append((h2c.expand_message_xmd(msg, dst, 96),
+                        h2c.expand_message_xof(msg, dst, 48),
+                        [f.value for f in h2c.hash_to_field(msg, dst, 2)],
+                        [s.value for s in
+                         h2c.hash_to_scalar_field(msg, dst, 2)],
+                        h2c.hash_to_curve_g1(msg, dst).to_affine().to_bytes(),
+                        h2c.encode_to_curve_g1(msg, dst).to_affine()
+                        .to_bytes(),
+                        h2c.hash_to_curve_g2(msg, dst2).to_affine()
+                        .to_bytes(),
+                        h2c.encode_to_curve_g2(msg, dst2).to_affine()
+                        .to_bytes()))
+        out.append(got)
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("domain,sizes,n_out", [
+    ("Merkle4", (4,), 1), ("Merkle2", (2,), 1), ("Encryption", (3, 2), 1),
+    ("Other", (1,), 1), ("Other", (5, 4), 3), ("Other", (9,), 6)])
+def test_poseidon_hash_equal_over_every_domain(domain, sizes, n_out):
+    out = []
+    for fields, hashes in ((rfields, rhashes), (pfields, phashes)):
+        vals = [0, fields.Fr.MODULUS - 1] + _ints(sum(sizes), 9)
+        h = hashes.Hash(getattr(hashes.Domain, domain))
+        h.output_len(n_out)
+        for size in sizes:
+            h.update([fields.Fr(v) for v in vals[:size]])
+            vals = vals[size:]
+        out.append(([f.value for f in h.finalize()],
+                    [(type(f).__name__, f.value)
+                     for f in h.finalize_truncated()]))
+    assert out[0] == out[1]
+    assert len(out[1][0]) == (n_out if domain == "Other" else 1)
+
+
+def test_hades_permutation_equal():
+    out = []
+    for hashes in (rhashes, phashes):
+        states = [[0] * 5, [pparams.FR_MODULUS - 1] * 5, _ints(5, 10)]
+        out.append([hashes.hades_permute([v % pparams.FR_MODULUS for v in s])
+                    for s in states])
+    assert out[0] == out[1] and hashes.WIDTH == 5
+
+
+@pytest.mark.parametrize("fields,hashes,safe", [
+    (rfields, rhashes, rsafe), (pfields, phashes, psafe)],
+    ids=["reference", "port"])
+def test_sponge_misuse_raises(fields, hashes, safe):
+    """The io pattern is enforced: a wrong call kind, a call across a
+    boundary, a call past the end, an early finish, a call after finish and
+    the fixed shapes of the Merkle domains."""
+    one = fields.Fr.one()
+    perm = hashes.ScalarPermutation()
+    pattern = [hashes.Call.absorb(2), hashes.Call.squeeze(1)]
+
+    def sponge():
+        return hashes.Sponge.start(perm, pattern, 0)
+
+    s = sponge()
+    with pytest.raises(safe.IOPatternViolation):
+        s.squeeze(1)                       # expected absorb
+    s = sponge()
+    with pytest.raises(safe.IOPatternViolation):
+        s.absorb(3, [one] * 3)             # spans the io boundary
+    s = sponge()
+    s.absorb(2, [one, one])
+    with pytest.raises(safe.IOPatternViolation):
+        s.finish()                         # pattern not complete
+    s.squeeze(1)
+    with pytest.raises(safe.IOPatternViolation):
+        s.squeeze(1)                       # pattern exhausted
+    assert len(s.finish()) == 1
+    with pytest.raises(safe.IOPatternViolation):
+        s.absorb(1, [one])                 # already finished
+    for domain, n in ((hashes.Domain.Merkle4, 3), (hashes.Domain.Merkle2, 4)):
+        with pytest.raises(safe.IOPatternViolation):
+            hashes.Hash.digest(domain, [one] * n)
+    merged = safe.aggregate_io_pattern(
+        [hashes.Call.absorb(1), hashes.Call.absorb(2), hashes.Call.squeeze(1)])
+    assert [(c.kind, c.len) for c in merged] == [
+        (safe.CallKind.ABSORB, 3), (safe.CallKind.SQUEEZE, 1)]

@@ -58,6 +58,40 @@ def test_padd_kernel_matches_plain(cuda):
         assert torch.equal(g.cpu(), w)
 
 
+def test_padd_ilp_kernel_matches_plain_and_padd(cuda):
+    """Ragged lanes (an odd count leaves half a thread pair past the end)
+    and a doubling batch."""
+    p = tuple(_field(lf.FQ, (2, 12, 515), s) for s in (3, 4, 5))
+    q = tuple(_field(lf.FQ, (2, 12, 515), s) for s in (6, 7, 8))
+    pd, qd = tuple(t.to(cuda) for t in p), tuple(t.to(cuda) for t in q)
+    for a, b, want in ((pd, qd, kernels.padd_ilp_plain(p, q)),
+                       (pd, pd, kernels.padd_ilp_plain(p, p))):
+        got = kernels.padd_ilp(a, b)
+        for g, s, w in zip(got, kernels.padd(a, b), want):
+            assert torch.equal(g.cpu(), w)
+            assert torch.equal(g, s)
+
+
+@pytest.mark.parametrize("lanes", [1, 515])
+def test_hades_permute_kernel_matches_plain(cuda, lanes):
+    from zkvm_tpu_torch.ops import poseidon
+
+    state = _field(lf.FR, (5, 8, lanes), 18)
+    state[:, :, 0] = 0
+    got = poseidon.hades_permute_batch(state.to(cuda))
+    assert torch.equal(got.cpu(), poseidon.hades_permute_batch(state))
+
+
+def test_from_leaves_on_card_matches_cpu(cuda):
+    from zkvm_tpu_torch.merkle import Item, PoseidonTree
+
+    leaves = [Fr(11 * i + 5) for i in range(64)]
+    tree = PoseidonTree.from_leaves(3, leaves, cuda)
+    want = PoseidonTree.from_leaves(3, leaves, "cpu")
+    assert tree.to_archive_bytes() == want.to_archive_bytes()
+    assert tree.opening(37).verify(Item(leaves[37]))
+
+
 def test_window_fold_kernel_matches_plain(cuda):
     sums = tuple(_field(lf.FQ, (12, 12), s).T.reshape(12, 12, 1)
                  .contiguous() for s in (9, 10, 11))

@@ -3,7 +3,8 @@ device fallback.
 
 The port imports nothing of `jax` and nothing of `zkvm_tpu` (it keeps its
 own copy of the host layer); a subprocess with both blocked runs a tiny
-setup and commit and must print the reference's commitment bytes.
+setup and commit and a tree build of height 1, and must print the
+reference's commitment bytes and root bytes.
 """
 
 import re
@@ -15,9 +16,12 @@ import pytest
 import torch
 
 from zkvm_tpu.fields import Fr
+from zkvm_tpu.merkle import PoseidonTree as RPoseidonTree
 from zkvm_tpu.plonk import kzg10 as rkzg
 from zkvm_tpu.plonk.polynomial import Polynomial
 from zkvm_tpu.rng import StdRng
+from zkvm_tpu_torch.fields import Fr as PFr
+from zkvm_tpu_torch.merkle import PoseidonTree
 from zkvm_tpu_torch.ops import kernels
 from zkvm_tpu_torch.ops.limb_field import FR
 from zkvm_tpu_torch.plonk import kzg10
@@ -41,9 +45,14 @@ from zkvm_tpu_torch.rng import StdRng
 from zkvm_tpu_torch.plonk.kzg10 import PublicParameters
 pp = PublicParameters.setup(4, StdRng(3), "cpu")
 c = pp.commit_key.commit([Fr(i + 1) for i in range(5)])
+from zkvm_tpu_torch.merkle import Item, PoseidonTree
+leaves = [Fr(7 * i + 3) for i in range(4)]
+tree = PoseidonTree.from_leaves(1, leaves, "cpu")
+assert tree.opening(2).verify(Item(leaves[2]))
 assert not any(m.split(".")[0] in ("jax", "zkvm_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print(c.to_bytes().hex())
+print(tree.root().to_bytes().hex())
 """
 
 
@@ -54,7 +63,10 @@ def test_slice_runs_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     ref = rkzg.PublicParameters.setup(4, StdRng(3)).commit_key.commit(
         Polynomial([Fr(i + 1) for i in range(5)]))
-    assert out.stdout.strip() == ref.to_bytes().hex()
+    root = RPoseidonTree.from_leaves(
+        1, [Fr(7 * i + 3) for i in range(4)]).root()
+    assert out.stdout.split() == [ref.to_bytes().hex(),
+                                  root.to_bytes().hex()]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -71,6 +83,8 @@ def test_cuda_request_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         kzg10.PublicParameters.setup(2, PStdRng(1), "cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        PoseidonTree.from_leaves(1, [PFr(i) for i in range(4)], "cuda")
 
 
 def test_kernel_wrappers_refuse_other_devices_and_layouts():

@@ -11,5 +11,7 @@ from .fp import Fp
 from .fp2 import Fp2
 from .fp6 import Fp6
 from .fp12 import Fp12
+from .jubjub_fr import JubjubFr
 
-__all__ = ["PrimeField", "Fr", "Fp", "Fp2", "Fp6", "Fp12"]
+__all__ = ["PrimeField", "Fr", "Fp", "Fp2", "Fp6", "Fp12",
+           "JubjubFr"]

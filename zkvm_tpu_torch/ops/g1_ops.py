@@ -27,6 +27,25 @@ def padd(p, q):
                         tuple(t.contiguous() for t in q))
 
 
+def padd_ilp(p, q):
+    """The same addition by the grouped kernel (`kernels.padd_ilp`: two
+    threads a point); bit-identical to `padd`, which stays the default."""
+    return kernels.padd_ilp(tuple(t.contiguous() for t in p),
+                            tuple(t.contiguous() for t in q))
+
+
+def sum_lanes(t, add=padd):
+    """Fold an [..., 12, M] point triple (M a power of two) to [..., 12, 1]
+    by a binary halving tree of `add` (`padd` or `padd_ilp`)."""
+    m = t[0].shape[-1]
+    if m & (m - 1):
+        raise ValueError(f"lane count {m} is not a power of two")
+    while m > 1:
+        m //= 2
+        t = add(tuple(c[..., :m] for c in t), tuple(c[..., m:] for c in t))
+    return t
+
+
 def pdouble(p):
     """Projective doubling.  On CUDA the complete addition formula doubles
     correctly, so P + P goes to the padd kernel (as the reference's TPU

@@ -1,6 +1,6 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Six kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Eight kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas`
   * `padd`         replaces `pallas_field.padd_pallas_2l`
@@ -8,6 +8,8 @@ Six kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
   * `butterfly`    replaces `pallas_field.butterfly_pallas`
   * `carry_fold`   replaces `ntt_mxu._carry_fold_pallas`
   * `fold`         replaces `ntt_mxu._fold_pallas`
+  * `hades_permute` replaces `pallas_field.hades_permute_pallas`
+  * `padd_ilp`     replaces `pallas_field.padd_pallas_ilp` / `_ilp2l`
 
 They are compiled with `nvcc` (one process per source, all started
 together) and linked into one shared library with a plain C interface on
@@ -33,6 +35,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from .. import params
 from . import limb_field as lf
 from .limb_field import FQ, FR
 
@@ -40,13 +43,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
-            "ntt_fold.cu")
+            "ntt_fold.cu", "hades.cu", "padd_ilp.cu")
 _HEADERS = ("common.cuh", "field.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"mont_mul": 0, "padd": 0, "window_fold": 0, "butterfly": 0,
-            "carry_fold": 0, "fold": 0}
+            "carry_fold": 0, "fold": 0, "hades_permute": 0, "padd_ilp": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -116,8 +119,11 @@ def build() -> float:
     lib.zk_butterfly.argtypes = [_P] * 5 + [_LL, _LL, _LL, _P]
     lib.zk_carry_fold.argtypes = [_P, _P, _LL, _P]
     lib.zk_fold.argtypes = [_P, _P, _LL, _P]
+    lib.zk_hades_permute.argtypes = [_P, _P, _P, _LL, _P]
+    lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P]
     for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_window_fold,
-               lib.zk_butterfly, lib.zk_carry_fold, lib.zk_fold):
+               lib.zk_butterfly, lib.zk_carry_fold, lib.zk_fold,
+               lib.zk_hades_permute, lib.zk_padd_ilp):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -227,9 +233,9 @@ def padd_plain(p, q):
     return tuple(lf.join16(t) for t in out)
 
 
-def padd(p, q):
-    """Complete G1 addition of [..., 12, B] int32 projective triples."""
-    dev = _check("padd", (*p, *q), p[0].shape, FQ.n_limbs)
+def _padd_launch(name: str, p, q):
+    """Shared wrapper of the two G1 addition kernels (`zk_<name>`)."""
+    dev = _check(name, (*p, *q), p[0].shape, FQ.n_limbs)
     if dev.type == "cpu":
         return padd_plain(p, q)
     out = tuple(torch.empty_like(p[0]) for _ in range(3))
@@ -239,9 +245,28 @@ def padd(p, q):
     lanes = p[0].shape[-1]
     groups = p[0].numel() // (FQ.n_limbs * lanes)
     with torch.cuda.device(dev):
-        _launch("padd", _lib.zk_padd, *(t.data_ptr() for t in (*p, *q)),
+        _launch(name, getattr(_lib, "zk_" + name),
+                *(t.data_ptr() for t in (*p, *q)),
                 *(t.data_ptr() for t in out), groups, lanes, _stream(dev))
     return out
+
+
+def padd(p, q):
+    """Complete G1 addition of [..., 12, B] int32 projective triples."""
+    return _padd_launch("padd", p, q)
+
+
+def padd_ilp_plain(p, q):
+    """Plain version of the padd_ilp kernel: `padd16` already runs the 14
+    products as the kernel's three groups of 6 + 2 + 6 independent ones,
+    so it serves both addition kernels."""
+    return padd_plain(p, q)
+
+
+def padd_ilp(p, q):
+    """The same addition as `padd`, bit for bit, by the grouped kernel: two
+    threads a point, each taking 3 + 1 + 3 of the 6 + 2 + 6 products."""
+    return _padd_launch("padd_ilp", p, q)
 
 
 # -----------------------------------------------------------------------------
@@ -417,3 +442,70 @@ def fold(limbs: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return fold_plain(limbs)
     return _launch_rows("fold", limbs, dev)
+
+
+# -----------------------------------------------------------------------------
+# hades_permute
+# -----------------------------------------------------------------------------
+
+HADES_WIDTH = params.HADES_WIDTH
+HADES_ROUNDS = params.HADES_ROUNDS
+_HADES_HALF = params.HADES_FULL_ROUNDS // 2
+# rows of the constant table: 68 x 5 round constants, then the 5 x 5 MDS
+# matrix row-major, each a Montgomery Fr element of 8 limbs
+HADES_CONST_ROWS = HADES_ROUNDS * HADES_WIDTH + HADES_WIDTH * HADES_WIDTH
+
+
+def hades_full_round(r: int) -> bool:
+    """Rounds 0-3 and 64-67 put every word through the S-box, rounds 4-63
+    only the last."""
+    return (r < _HADES_HALF
+            or r >= _HADES_HALF + params.HADES_PARTIAL_ROUNDS)
+
+
+def hades_permute_plain(state: torch.Tensor,
+                        consts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the hades_permute kernel: the five words stacked in
+    one tensor, the 25 MDS products in one multiply."""
+    w = HADES_WIDTH
+    c = lf.split16(consts.reshape(HADES_CONST_ROWS, FR.n_limbs, 1))
+    arc = c[:HADES_ROUNDS * w].reshape(HADES_ROUNDS, w, -1, 1)
+    mds = c[HADES_ROUNDS * w:].reshape(w, w, -1, 1)
+    mul = lambda a, b: lf.mont_mul16(FR, a, b)
+    s = lf.split16(state)                                    # [5, 16, B]
+    for r in range(HADES_ROUNDS):
+        s = lf.add16(FR, s, arc[r])
+        box = s if hades_full_round(r) else s[w - 1:]
+        x2 = mul(box, box)
+        x5 = mul(mul(x2, x2), box)
+        s = x5 if hades_full_round(r) else torch.cat([s[:w - 1], x5])
+        # out[row] = sum_col MDS[row, col] * s[col]
+        prod = mul(s.unsqueeze(0).expand((w,) + s.shape), mds)
+        out = prod[:, 0]
+        for col in range(1, w):
+            out = lf.add16(FR, out, prod[:, col])
+        s = out
+    return lf.join16(s)
+
+
+def hades_permute(state: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
+    """68 Hades rounds over a [5, 8, B] int32 Montgomery state.  `consts`
+    is the [365, 8] int32 Montgomery table of round constants and MDS
+    matrix (`ops/poseidon.py` builds it once per device)."""
+    dev = _check("hades_permute", (state,),
+                 (HADES_WIDTH, FR.n_limbs, state.shape[-1]), FR.n_limbs)
+    if (_check_rows("hades_permute", consts, HADES_CONST_ROWS) != dev
+            or tuple(consts.shape) != (HADES_CONST_ROWS, FR.n_limbs)):
+        raise ValueError(f"hades_permute: constants {tuple(consts.shape)} "
+                         f"on {consts.device}, state on {dev}")
+    if dev.type == "cpu":
+        return hades_permute_plain(state, consts)
+    out = torch.empty_like(state)
+    if state.numel() == 0:
+        return out
+    build()
+    with torch.cuda.device(dev):
+        _launch("hades_permute", _lib.zk_hades_permute, state.data_ptr(),
+                consts.data_ptr(), out.data_ptr(), state.shape[-1],
+                _stream(dev))
+    return out

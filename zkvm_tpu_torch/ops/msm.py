@@ -132,19 +132,6 @@ def _scan_padd(t, reverse: bool = False):
     return tuple(out)
 
 
-def _reduce_padd_lanes(t):
-    """Fold an [..., 12, M] point triple (M a power of two) to [..., 12, 1]
-    by a binary halving tree."""
-    m = t[0].shape[-1]
-    if m & (m - 1):
-        raise ValueError(f"lane count {m} is not a power of two")
-    while m > 1:
-        m //= 2
-        t = g1_ops.padd(tuple(c[..., :m] for c in t),
-                        tuple(c[..., m:] for c in t))
-    return t
-
-
 def _gather_lanes(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """[B, L, M] limbs gathered along lanes by idx [B, K] -> [B, L, K]."""
     return torch.gather(t, 2, idx[:, None, :].expand(-1, t.shape[1], -1))
@@ -192,7 +179,7 @@ def _scatter_dense(rs, coords, half: int):
 def _weighted_fold(buckets):
     """Dense bucket sums [B, 12, half] -> sum_b (b+1) S_b as [B, 12, 1]
     via suffix sums plus a lane reduction."""
-    return _reduce_padd_lanes(_scan_padd(buckets, reverse=True))
+    return g1_ops.sum_lanes(_scan_padd(buckets, reverse=True))
 
 
 def _sorted_points(c: int, pm, pinf, limbs):
