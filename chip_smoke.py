@@ -12,13 +12,21 @@ Phases (any failure exits non-zero; no phase catches its own error):
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
-     both timed there; then the byte-plane matmul at its worst case
-     (m = 256, every byte 255) against an int64 product;
+     both timed there; padd also on strided operands read in place (even /
+     odd lanes, halves, limbs innermost) and under each of its launch
+     bounds; window_fold at four sets and at one, with the time of one
+     addition of its chain beside the latency of one dependent Fq product
+     in one thread (a probe kernel), which gives the chain's floor; then
+     the byte-plane matmul at its worst case (m = 256, every byte 255)
+     against an int64 product;
   4. commitment path: PublicParameters.setup(2^16) on the card (a sample of
      64 powers checked against host group arithmetic), then
      commit_many_mont of four and of one polynomial of 2^16 coefficients,
      each commitment checked against the native host MSM over the full
-     2^16;
+     2^16; after the counted run, what the two commits are made of: every
+     padd launch by its lanes (a histogram, with the kernel's time at each
+     size), padd against padd_ilp inside a commit, and a torch.profiler
+     breakdown into hand-written kernels, torch glue and idle share;
   5. polynomial path at n = 2^16 / 8n = 2^19: four evaluation vectors ->
      batched ifft -> blinders -> commit -> pad -> coset fft and back ->
      evaluations at z -> linear combination -> division by (X - z) ->
@@ -88,6 +96,9 @@ HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
 # Fr products of one permutation: 8 full rounds of 15 + 25, 60 partial
 # rounds of 3 + 25
 HADES_PRODUCTS = 8 * (15 + 25) + 60 * (3 + 25)
+# Fq products of one complete G1 addition: RCB15 algorithm 7 has 12 products
+# of variables and 2 by the constant 3b = 12, which four additions replace
+PADD_PRODUCTS = 12
 # the largest byte column the matmul route can make: 32 byte pairs, each a
 # sum of 256 products of 255 * 255
 WORST_COLUMN = 32 * 256 * 255 * 255
@@ -113,6 +124,10 @@ KERNELS = {
     "padd_ilp": ("zkvm_tpu_torch/csrc/padd_ilp.cu",
                  "zkvm_tpu/ops/pallas_field.py:626"),
 }
+# how the port's CUDA kernels are named in a profile
+OUR_KERNELS = ("mont_mul_kernel", "padd_kernel", "padd_ilp_kernel",
+               "window_fold_kernel", "butterfly_kernel", "fold_kernel",
+               "hades_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
            "padd_comparison")
 
@@ -272,10 +287,11 @@ def phase_parity(rng, dev) -> dict:
     err_ilp = max(err_ilp, max_abs_err(got_ilp, want_plain),
                   max_abs_err(got_ilp, got))
     del want_plain, got, got_ilp
-    # 12 variable and 2 constant Montgomery products a lane, for both
-    # kernels; in turns: padd, padd_ilp, padd_ilp, padd
+    # the function needs 12 Montgomery products a lane (the two by the
+    # constant 3b are additions), whichever kernel computes it; in turns:
+    # padd, padd_ilp, padd_ilp, padd
     b = bound(9 * p[0].numel() * 4,
-              14 * mont_mul_ops(12) * p[0].numel() // 12)
+              PADD_PRODUCTS * mont_mul_ops(12) * p[0].numel() // 12)
     ms = cuda_ms(lambda: kernels.padd(p, q), 10)
     ms_ilp = cuda_ms(lambda: kernels.padd_ilp(p, q), 10)
     ms_ilp = (ms_ilp + cuda_ms(lambda: kernels.padd_ilp(p, q), 10)) / 2
@@ -288,9 +304,41 @@ def phase_parity(rng, dev) -> dict:
                            plain_ms=plain_ilp_ms, shape="[24, 12, 32768]",
                            **b)
     del p, q
+    # strided operands read in place, as the halving tree, the scan and the
+    # lane sum hand them over: even / odd lanes and the two halves of one
+    # tensor, and lanes whose limbs are innermost (a transposed gather)
+    wide = tuple(lf.u32_to_tensor(rand_field(FQ, (24, 12, N), rng), dev)
+                 for _ in range(3))
+    turned = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in wide)
+    views = {
+        "even / odd lanes": (tuple(t[..., 0::2] for t in wide),
+                             tuple(t[..., 1::2] for t in wide)),
+        "two halves": (tuple(t[..., :N // 2] for t in wide),
+                       tuple(t[..., N // 2:] for t in wide)),
+        "even / odd lanes, limbs innermost": (
+            tuple(t[..., 0::2] for t in turned),
+            tuple(t[..., 1::2] for t in turned)),
+    }
+    strided_ms = {}
+    for name, (vp, vq) in views.items():
+        if vp[0].is_contiguous() or kernels.padd_layout(vp) is None:
+            raise AssertionError(f"padd: {name} is not a strided view")
+        err = max_abs_err(kernels.padd(vp, vq), kernels.padd_plain(vp, vq))
+        rec["padd"]["max_abs_err"] = max(rec["padd"]["max_abs_err"], err)
+        strided_ms[name] = cuda_ms(lambda: kernels.padd(vp, vq), 10)
+    copy_ms = cuda_ms(lambda: [t.contiguous() for v in views[
+        "even / odd lanes"] for t in v], 10)
+    log("padd on strided operands at [24, 12, 32768], read in place: "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in strided_ms.items())
+        + f"; contiguous {ms:.4f} ms; the six copies they replace "
+        f"{copy_ms:.4f} ms")
+    rec["padd"]["strided_ms"] = strided_ms["even / odd lanes"]
+    del wide, turned, views
 
     # -- window_fold: 4 sets x 24 windows, c = 11 (the 4-set commit), with
-    # identity rows; CPU plain and card plain
+    # identity rows, and its first set alone (the 1-set commit); CPU plain
+    # and card plain
     c, w_count, n_sets = 11, 24, 4
     rows = host_points(w_count * n_sets, rng)
     rows[0] = rows[5] = G1Affine.identity()
@@ -303,12 +351,30 @@ def phase_parity(rng, dev) -> dict:
     ms = cuda_ms(lambda: kernels.window_fold(c, w_count, n_sets, *sd), 10)
     plain_ms = cuda_ms(lambda: kernels.window_fold_plain(c, w_count, n_sets,
                                                          *sd), 1)
-    # W (c + 1) additions a set; the chain is serial, which no bound of
-    # bytes or operations sees
+    s1 = tuple(t[:w_count].contiguous() for t in sd)
+    got1 = kernels.window_fold(c, w_count, 1, *s1)
+    err = max(err, max_abs_err(got1, kernels.window_fold_plain(c, w_count, 1,
+                                                               *s1)),
+              max_abs_err(got1, got[:, :, :1]))
+    ms1 = cuda_ms(lambda: kernels.window_fold(c, w_count, 1, *s1), 10)
+    # the chain: W (c + 1) dependent additions a set, each two products
+    # deep, which no bound of bytes or operations sees; its floor is the
+    # latency of one dependent Fq product in one thread
+    probe = phase_product_latency(rng, dev)
+    adds = w_count * (c + 1)
     rec["window_fold"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, shape="S=4, W=24, c=11",
+        ms_one_set=ms1, us_per_addition=ms * 1e3 / adds,
+        chain_floor_ms=adds * 2 * probe["lazy_us"] / 1e3, **probe,
         **bound((3 * sums[0].numel() + 3 * 12 * n_sets) * 4,
-                n_sets * w_count * (c + 1) * 14 * mont_mul_ops(12)))
+                n_sets * adds * PADD_PRODUCTS * mont_mul_ops(12)))
+    log(f"window_fold chain: {adds} dependent additions a set; S = 4 "
+        f"{ms:.4f} ms = {ms * 1e3 / adds:.4f} us an addition, S = 1 "
+        f"{ms1:.4f} ms = {ms1 * 1e3 / adds:.4f} us an addition; one dependent "
+        f"Fq product in one thread {probe['lazy_us']:.4f} us (carry-flag "
+        f"product of fq_lazy.cuh), {probe['cios_us']:.4f} us (field.cuh's); "
+        f"chain floor {adds} x 2 products x {probe['lazy_us']:.4f} us = "
+        f"{rec['window_fold']['chain_floor_ms']:.4f} ms")
 
     phase_parity_ntt(rng, dev, rec)
     phase_parity_hades(rng, dev, rec)
@@ -322,6 +388,30 @@ def phase_parity(rng, dev) -> dict:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err={r['max_abs_err']})")
     return rec
+
+
+def phase_product_latency(rng, dev) -> dict:
+    """The latency of one dependent Fq product in one thread: one warp walks
+    x <- x a / R a few thousand times in one launch, by each of the two
+    device multiplies; the result is held against the plain chain."""
+    iters = 4000
+    a = lf.u32_to_tensor(rand_field(FQ, (12, 32), rng), "cpu")
+    want = kernels.fq_mul_chain_plain(a, 64)
+    ad = a.to(dev)
+    out = {}
+    for key, lazy in (("cios_us", False), ("lazy_us", True)):
+        if not torch.equal(kernels.fq_mul_chain(ad, 64, lazy).cpu(), want):
+            raise AssertionError(f"the product chain ({key}) disagrees with "
+                                 f"its plain version")
+        ms = cuda_ms(lambda: kernels.fq_mul_chain(ad, iters, lazy), 5)
+        out[key] = ms * 1e3 / iters
+    # the closed form: in Montgomery form every step multiplies the values
+    got = FQ.from_mont_array(kernels.fq_mul_chain(ad, iters, True))
+    vals = FQ.from_mont_array(a)
+    for j in (0, 31):
+        if got[j] != pow(vals[j], iters + 1, FQ.modulus):
+            raise AssertionError("the product chain disagrees with the host")
+    return out
 
 
 def byte_columns(rng, lanes: int) -> np.ndarray:
@@ -615,6 +705,121 @@ def phase_slice(rng, dev) -> dict:
     out["launches"] = launches
     out["commit_key"] = ck
     out["opening_key"] = pp.opening_key
+    out["mont"] = mont
+    return out
+
+
+def phase_commit_breakdown(ck, mont) -> dict:
+    """What the commit cells are made of, measured after the counted run:
+
+    the lanes of every padd launch of one warm commit of four sets and of
+    one set, as a histogram, each launch timed on the operands the path
+    handed it (so that a launch count stops standing for one shape); both
+    commits again with `kernels.padd` replaced by the grouped kernel on contiguous copies, in
+    turns (which of the two `g1_ops.padd` should take, inside a commit);
+    and both under torch.profiler: kernels, torch glue, idle share."""
+    cells = {"commit4": lambda: ck.commit_many_mont(mont),
+             "commit1": lambda: ck.commit_many_mont(mont[:1])}
+    real_padd = kernels.padd
+
+    # ---- the launches of one warm commit, by size ----
+    # every launch is timed again, then and there, on the very operands the
+    # path handed it (strided views included)
+    seen = []
+
+    def recording(p, q, layouts=None):
+        lanes = p[0].shape[-1]
+        seen.append((p[0].numel() // (12 * lanes), lanes,
+                     p[0].is_contiguous() and q[0].is_contiguous(),
+                     cuda_ms(lambda: real_padd(p, q, layouts), 3)))
+        return real_padd(p, q, layouts)
+
+    # points that g1_ops.padd still had to copy (their coordinates do not
+    # share one layout)
+    real_in_place = g1_ops._in_place
+    copied = []
+
+    def counting(point):
+        res = real_in_place(point)
+        copied.append(res[0] is not point)
+        return res
+
+    shapes, copies = {}, {}
+    for name, fn in cells.items():
+        fn()
+        torch.cuda.synchronize()
+        seen.clear()
+        copied.clear()
+        kernels.padd, g1_ops._in_place = recording, counting
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            kernels.padd, g1_ops._in_place = real_padd, real_in_place
+        shapes[name] = list(seen)
+        copies[name] = sum(copied)
+    out = {}
+    for name, launched in shapes.items():
+        hist = {}
+        for groups, lanes, _, ms_launch in launched:
+            size = groups * lanes
+            n, ms = hist.get(size, (0, 0.0))
+            hist[size] = (n + 1, ms + ms_launch)
+        total = sum(ms for _, ms in hist.values())
+        lanes_all = sum(size * n for size, (n, _) in hist.items())
+        out[name] = dict(
+            launches=len(launched), padd_ms=total,
+            padd_bound_ms=bound(
+                9 * 12 * 4 * lanes_all,
+                PADD_PRODUCTS * mont_mul_ops(12) * lanes_all)["bound_ms"],
+            contiguous=sum(1 for s in launched if s[2]),
+            points_copied=copies[name],
+            histogram=[[size, n, ms] for size, (n, ms)
+                       in sorted(hist.items(), reverse=True)])
+    log(json.dumps({"padd_launches_by_lanes": {
+        "columns": ["lanes (groups x lanes)", "launches",
+                    "kernel ms summed over them, each launch timed on the "
+                    "operands the path passed"], **out}}))
+    for name, r in out.items():
+        log(f"{name}: {r['launches']} padd launches ({r['contiguous']} on "
+            f"contiguous operands, the others read in place; "
+            f"{r['points_copied']} of {2 * r['launches']} points copied "
+            f"first), kernel time summed over the launches, each timed on "
+            f"its own operands, {r['padd_ms']:.4f} ms against a bound of "
+            f"{r['padd_bound_ms']:.4f} ms for the same lanes")
+
+    # ---- padd against padd_ilp inside a commit, in turns ----
+    def grouped(p, q, layouts=None):
+        return kernels.padd_ilp(tuple(t.contiguous() for t in p),
+                                tuple(t.contiguous() for t in q))
+
+    for name, fn in cells.items():
+        times = []
+        for label, add in (("padd", real_padd), ("padd_ilp", grouped),
+                           ("padd_ilp", grouped), ("padd", real_padd)):
+            kernels.padd = add
+            try:
+                times.append((label, cuda_ms(fn, 10), host_ms(fn, 10)))
+            finally:
+                kernels.padd = real_padd
+        log(f"{name} with each addition kernel under g1_ops.padd, in turns: "
+            + "; ".join(f"{label} device {d:.3f} ms, wall {w:.3f} ms"
+                        for label, d, w in times))
+        out[name]["by_kernel"] = times
+
+    # ---- kernels, glue and host ----
+    for name, fn in cells.items():
+        rows = profiled(f"{name} x 2^{LOG_N}, warm", fn, top=12)
+        ours = sum(us for key, us, _ in rows
+                   if any(k in key for k in OUR_KERNELS)) / 1e3
+        busy = sum(us for _, us, _ in rows) / 1e3
+        copies = [(us, n) for key, us, n in rows
+                  if "copy" in key.lower() or "Memcpy" in key]
+        log(f"  {name}: hand-written kernels {ours:.3f} ms, torch glue "
+            f"{busy - ours:.3f} ms of which copies "
+            f"{sum(us for us, _ in copies) / 1e3:.3f} ms in "
+            f"{sum(n for _, n in copies)} launches")
+        out[name].update(kernels_ms=ours, glue_ms=busy - ours)
     return out
 
 
@@ -1211,6 +1416,7 @@ def main() -> int:
     rec = phase_parity(rng, dev)
     phase_matmul_exact(dev)
     sl = phase_slice(rng, dev)
+    phase_commit_breakdown(sl["commit_key"], sl["mont"])
     po = phase_poly(rng, dev, sl["commit_key"], sl["opening_key"])
     me = phase_merkle(rng, dev)
     pc = phase_padd_comparison(sl["commit_key"])
@@ -1233,7 +1439,9 @@ def main() -> int:
          "plain_ms": rec[name]["plain_ms"],
          "bound_ms": rec[name]["bound_ms"],
          "bound_by": rec[name]["bound_by"], "library_ms": None,
-         "shape": rec[name]["shape"]} for name in KERNELS]}
+         **{k: v for k, v in rec[name].items()
+            if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by")}} for name in KERNELS]}
     for k in record["kernels"]:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was launched on no path")

@@ -58,6 +58,77 @@ def test_padd_kernel_matches_plain(cuda):
         assert torch.equal(g.cpu(), w)
 
 
+_VIEWS = {
+    "even_odd": lambda t: (t[..., 0::2], t[..., 1::2]),
+    "halves": lambda t: (t[..., :257], t[..., 257:514]),
+    "scan_fix": lambda t: (t[..., :256], t[..., 2:514:2]),
+    "limbs_innermost": lambda t: (
+        t.transpose(1, 2).contiguous().transpose(1, 2)[..., 0:514:2],
+        t[..., 1::2]),
+    "one_lane": lambda t: (t[..., 3:4], t[..., 100:101]),
+    "no_group_axis": lambda t: (t[1, :, 0::2], t[0, :, 1::2]),
+}
+
+
+@pytest.mark.parametrize("view", sorted(_VIEWS))
+def test_padd_kernel_reads_strided_operands(cuda, view):
+    """Views of one ragged [3, 12, 515] batch, read in place on the card."""
+    from zkvm_tpu_torch.ops import g1_ops
+
+    wide = tuple(_field(lf.FQ, (3, 12, 515), s) for s in (19, 20, 21))
+    on_card = tuple(t.to(cuda) for t in wide)
+    p, q = zip(*(_VIEWS[view](t) for t in on_card))
+    lanes = min(p[0].shape[-1], q[0].shape[-1])
+    p = tuple(t[..., :lanes] for t in p)
+    q = tuple(t[..., :lanes] for t in q)
+    assert kernels.padd_layout(p) and kernels.padd_layout(q)
+    before = kernels.LAUNCHES["padd"]
+    got = g1_ops.padd(p, q)
+    assert kernels.LAUNCHES["padd"] == before + 1
+    want = kernels.padd_plain(tuple(t.cpu() for t in p),
+                              tuple(t.cpu() for t in q))
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g.cpu(), w)
+
+
+def test_padd_kernel_on_special_points(cuda):
+    """O + Q, P + O, O + O, P + P, P + (-P) among ordinary sums, 130 lanes,
+    against the plain version and the host's group law."""
+    from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective
+    from zkvm_tpu_torch.ops import g1_ops
+
+    g = G1Projective.generator()
+    pts = G1Projective.batch_normalize([g * (7 * i + 3) for i in range(260)])
+    lhs, rhs = pts[:130], pts[130:]
+    lhs[0] = G1Affine.identity()
+    rhs[1] = G1Affine.identity()
+    lhs[2] = rhs[2] = G1Affine.identity()
+    rhs[3] = lhs[3]
+    rhs[4] = -lhs[4]
+    p = g1_ops.affine_to_device(lhs, "cpu")
+    q = g1_ops.affine_to_device(rhs, "cpu")
+    got = kernels.padd(tuple(t.to(cuda) for t in p),
+                       tuple(t.to(cuda) for t in q))
+    for g_, w in zip(got, kernels.padd_plain(p, q)):
+        assert torch.equal(g_.cpu(), w)
+    for i in (0, 1, 2, 3, 4, 5, 129):
+        assert (g1_ops.device_to_projective(got, i)
+                == lhs[i].to_projective() + rhs[i].to_projective())
+    # a doubling by aliased operands
+    pd = tuple(t.to(cuda) for t in p)
+    for g_, w in zip(kernels.padd(pd, pd), kernels.padd_plain(p, p)):
+        assert torch.equal(g_.cpu(), w)
+
+
+def test_padd_wrapper_raises_on_card(cuda):
+    x, y, z = (_field(lf.FQ, (2, 12, 64), s).to(cuda) for s in (22, 23, 24))
+    other = y.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="share one layout"):
+        kernels.padd((x, other, z), (x, y, z))
+    with pytest.raises(ValueError):
+        kernels.padd((x, y, z), (x.cpu(), y.cpu(), z.cpu()))
+
+
 def test_padd_ilp_kernel_matches_plain_and_padd(cuda):
     """Ragged lanes (an odd count leaves half a thread pair past the end)
     and a doubling batch."""
@@ -97,6 +168,30 @@ def test_window_fold_kernel_matches_plain(cuda):
                  .contiguous() for s in (9, 10, 11))
     got = kernels.window_fold(3, 4, 3, *(t.to(cuda) for t in sums))
     assert torch.equal(got.cpu(), kernels.window_fold_plain(3, 4, 3, *sums))
+
+
+@pytest.mark.parametrize("n_sets", [1, 3, 4, 40])
+@pytest.mark.parametrize("c,w_count", [(3, 4), (11, 24)])
+def test_window_fold_kernel_sets_and_widths(cuda, n_sets, c, w_count):
+    """One block a set: one set, a few, and more than any one block held;
+    the 2^16 commitment's (c, W) and a small one; identity rows among
+    them."""
+    rows = n_sets * w_count
+    sums = [_field(lf.FQ, (12, rows), s).T.reshape(rows, 12, 1).contiguous()
+            for s in (25, 26, 27)]
+    sums[0][0] = 0  # row 0 of set 0: (0 : y : 0), an identity
+    sums[2][0] = 0
+    got = kernels.window_fold(c, w_count, n_sets, *(t.to(cuda) for t in sums))
+    want = kernels.window_fold_plain(c, w_count, n_sets, *sums)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_product_chain_probe_matches_plain(cuda):
+    a = _field(lf.FQ, (12, 32), 28)
+    want = kernels.fq_mul_chain_plain(a, 40)
+    for lazy in (False, True):
+        assert torch.equal(kernels.fq_mul_chain(a.to(cuda), 40, lazy).cpu(),
+                           want)
 
 
 def test_setup_and_commit_on_card(cuda):

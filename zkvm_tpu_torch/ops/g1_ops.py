@@ -20,11 +20,23 @@ from . import limb_field as lf
 from .limb_field import FQ
 
 
+def _in_place(point):
+    """The point as the padd kernel can read it, with its layout: itself
+    where its three coordinates share one layout (every second lane, one
+    half, a transposed gather: no copy), else a contiguous copy."""
+    layout = kernels.padd_layout(point)
+    if layout is None:
+        point = tuple(t.contiguous() for t in point)
+        layout = kernels.padd_layout(point)
+    return point, layout
+
+
 def padd(p, q):
     """Complete projective addition (RCB15 algorithm 7, a = 0) through the
-    padd kernel (its plain version for CPU tensors)."""
-    return kernels.padd(tuple(t.contiguous() for t in p),
-                        tuple(t.contiguous() for t in q))
+    padd kernel (its plain version for CPU tensors).  Strided operands are
+    read in place; the result is contiguous."""
+    (p, lp), (q, lq) = _in_place(tuple(p)), _in_place(tuple(q))
+    return kernels.padd(p, q, (lp, lq))
 
 
 def padd_ilp(p, q):

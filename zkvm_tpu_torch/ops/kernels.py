@@ -3,7 +3,8 @@
 Eight kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas`
-  * `padd`         replaces `pallas_field.padd_pallas_2l`
+  * `padd`         replaces `pallas_field.padd_pallas_2l` (reads strided
+                   operands in place)
   * `window_fold`  replaces `pallas_field.window_fold_pallas`
   * `butterfly`    replaces `pallas_field.butterfly_pallas`
   * `carry_fold`   replaces `ntt_mxu._carry_fold_pallas`
@@ -16,7 +17,12 @@ together) and linked into one shared library with a plain C interface on
 first use (never at import), cached under `zkvm_tpu_torch/build/` by a hash
 of the sources, and bound with ctypes.
 
-Each wrapper checks dtype, shape, device and contiguity, allocates its
+`padd` and `window_fold` share the lazily reduced carry-flag arithmetic of
+`csrc/fq_lazy.cuh`; the other kernels use `csrc/field.cuh`.  `fq_mul_chain`
+is a measuring probe (one warp, a chain of dependent Fq products), not a
+kernel of any path: it has no count.
+
+Each wrapper checks dtype, shape, device and layout, allocates its
 outputs, launches on the current stream and adds one to `LAUNCHES[name]`.
 A CPU tensor takes the kernel's plain PyTorch version (`*_plain`, defined
 here beside the kernel); a CUDA tensor launches the kernel or raises.
@@ -44,7 +50,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
             "ntt_fold.cu", "hades.cu", "padd_ilp.cu")
-_HEADERS = ("common.cuh", "field.cuh")
+_HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
@@ -114,7 +120,8 @@ def build() -> float:
             o.unlink()
     lib = ctypes.CDLL(str(so))
     lib.zk_mont_mul.argtypes = [_I, _P, _P, _P, _LL, _LL, _P]
-    lib.zk_padd.argtypes = [_P] * 9 + [_LL, _LL, _P]
+    lib.zk_padd.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
+    lib.zk_fq_chain.argtypes = [_P, _P, _I, _I, _P]
     lib.zk_window_fold.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.zk_butterfly.argtypes = [_P] * 5 + [_LL, _LL, _LL, _P]
     lib.zk_carry_fold.argtypes = [_P, _P, _LL, _P]
@@ -123,7 +130,7 @@ def build() -> float:
     lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P]
     for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_window_fold,
                lib.zk_butterfly, lib.zk_carry_fold, lib.zk_fold,
-               lib.zk_hades_permute, lib.zk_padd_ilp):
+               lib.zk_hades_permute, lib.zk_padd_ilp, lib.zk_fq_chain):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -233,27 +240,81 @@ def padd_plain(p, q):
     return tuple(lf.join16(t) for t in out)
 
 
-def _padd_launch(name: str, p, q):
-    """Shared wrapper of the two G1 addition kernels (`zk_<name>`)."""
-    dev = _check(name, (*p, *q), p[0].shape, FQ.n_limbs)
+def padd_layout(point):
+    """(group, limb, lane) strides in elements if the padd kernel can read
+    the [..., 12, B] triple `point` in place, else None.  It can when the
+    three coordinates share one shape and one set of strides and the leading
+    axes collapse into one group axis (stride[k] = stride[k + 1] * size[k +
+    1]); the limb and lane strides are free."""
+    x = point[0]
+    if x.dim() < 2 or any(t.shape != x.shape or t.stride() != x.stride()
+                          for t in point[1:]):
+        return None
+    lead = [(n, s) for n, s in zip(x.shape[:-2], x.stride()[:-2]) if n != 1]
+    for (_, s0), (n1, s1) in zip(lead, lead[1:]):
+        if s0 != s1 * n1:
+            return None
+    return (lead[-1][1] if lead else 0, x.stride(-2), x.stride(-1))
+
+
+def _add_points(name: str, p, q, layouts):
+    """The body the two addition wrappers share: validate the six
+    coordinates, then the plain version (CPU) or one launch of `zk_<name>`
+    into contiguous outputs.  `layouts` holds the `padd_layout` of p and of
+    q for the kernel that reads strided points in place, and is None for the
+    one that takes contiguous operands only."""
+    if len(p) != 3 or len(q) != 3:
+        raise ValueError(f"{name}: a point is an (x, y, z) triple")
+    shape, dev = p[0].shape, p[0].device
+    for t in (*p, *q):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if layouts is None and not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if len(shape) < 2 or shape[-2] != FQ.n_limbs:
+        raise ValueError(f"{name}: limb axis of {tuple(shape)} is not "
+                         f"{FQ.n_limbs}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cpu":
         return padd_plain(p, q)
-    out = tuple(torch.empty_like(p[0]) for _ in range(3))
+    out = tuple(torch.empty(shape, dtype=torch.int32, device=dev)
+                for _ in range(3))
     if p[0].numel() == 0:
         return out
     build()
-    lanes = p[0].shape[-1]
+    lanes = shape[-1]
     groups = p[0].numel() // (FQ.n_limbs * lanes)
+    strides = () if layouts is None else (
+        (ctypes.c_longlong * 6)(*layouts[0], *layouts[1]),)
     with torch.cuda.device(dev):
         _launch(name, getattr(_lib, "zk_" + name),
                 *(t.data_ptr() for t in (*p, *q)),
-                *(t.data_ptr() for t in out), groups, lanes, _stream(dev))
+                *(t.data_ptr() for t in out), groups, lanes, *strides,
+                _stream(dev))
     return out
 
 
-def padd(p, q):
-    """Complete G1 addition of [..., 12, B] int32 projective triples."""
-    return _padd_launch("padd", p, q)
+def padd(p, q, layouts=None):
+    """Complete G1 addition of [..., 12, B] int32 projective triples.  Each
+    point may be any strided view (every second lane, one half, a
+    transpose) as long as its three coordinates share one layout; the
+    result is contiguous.  A caller that has the two points' `padd_layout`
+    already hands them over as `layouts`, so that they are computed once."""
+    if layouts is None:
+        layouts = (padd_layout(p), padd_layout(q))
+    for point, layout in zip((p, q), layouts):
+        if layout is None:
+            raise ValueError(
+                f"padd: the three coordinates of a point must share one "
+                f"layout whose leading axes collapse into one (strides "
+                f"{[t.stride() for t in point]})")
+    return _add_points("padd", p, q, layouts)
 
 
 def padd_ilp_plain(p, q):
@@ -265,8 +326,9 @@ def padd_ilp_plain(p, q):
 
 def padd_ilp(p, q):
     """The same addition as `padd`, bit for bit, by the grouped kernel: two
-    threads a point, each taking 3 + 1 + 3 of the 6 + 2 + 6 products."""
-    return _padd_launch("padd_ilp", p, q)
+    threads a point, each taking 3 + 1 + 3 of the 6 + 2 + 6 products.
+    Contiguous operands only."""
+    return _add_points("padd_ilp", p, q, None)
 
 
 # -----------------------------------------------------------------------------
@@ -303,6 +365,36 @@ def window_fold(c: int, w_count: int, n_sets: int, x, y, z) -> torch.Tensor:
         _launch("window_fold", _lib.zk_window_fold, x.data_ptr(),
                 y.data_ptr(), z.data_ptr(), out.data_ptr(), c, w_count,
                 n_sets, _stream(dev))
+    return out
+
+
+def fq_mul_chain_plain(a: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of the probe: x <- x a / R, `iters` times, from x = a."""
+    w = lf.split16(a)
+    acc = w
+    for _ in range(iters):
+        acc = lf.mont_mul16(FQ, acc, w)
+    return lf.join16(acc)
+
+
+def fq_mul_chain(a: torch.Tensor, iters: int, lazy: bool) -> torch.Tensor:
+    """A measuring probe, not a kernel of any path: one warp, each of its 32
+    lanes walks `iters` dependent Fq products x <- x a / R from x = a, by
+    `field.cuh`'s fully reduced product or (`lazy`) by the carry-flag product
+    of the two G1 kernels.  `a` is [12, 32] int32 below q; returns the
+    canonical x.  Its time over `iters` is the latency of one product in one
+    thread."""
+    dev = _check("fq_mul_chain", (a,), (FQ.n_limbs, 32), FQ.n_limbs)
+    if dev.type == "cpu":
+        return fq_mul_chain_plain(a, iters)
+    out = torch.empty_like(a)
+    build()
+    with torch.cuda.device(dev):
+        rc = _lib.zk_fq_chain(a.data_ptr(), out.data_ptr(), iters, int(lazy),
+                              _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fq_mul_chain launch failed: "
+                           f"{_lib.zk_error_string(rc).decode()} ({rc})")
     return out
 
 
