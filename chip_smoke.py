@@ -8,11 +8,17 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the eight CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the nine CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
-     both timed there; padd also on strided operands read in place (even /
+     both timed there; mont_mul also on broadcast and strided operands read
+     in place (a constant column, a table shared by every group, an [L, 1]
+     lane broadcast, every second lane), with a profile that must show no
+     copy kernel, and beside an empty launch of its grid; mont_pow at the
+     SRS normalisation's shape (exponent p - 2) and at small exponents;
+     hades_permute on both sides of the lane count at which hades.cu
+     changes kernels; padd also on strided operands read in place (even /
      odd lanes, halves, limbs innermost) and under each of its launch
      bounds; window_fold at four sets and at one, with the time of one
      addition of its chain beside the latency of one dependent Fq product
@@ -63,6 +69,7 @@ sys.modules["jax"] = None  # any import of jax now fails
 sys.modules["zkvm_tpu"] = None  # and any import of the JAX package
 
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -93,9 +100,16 @@ Q = FR.modulus
 MERKLE_HEIGHT = 10        # PoseidonTree.from_leaves: 4^10 leaves
 LEVELS_HEIGHT = 12        # merkle_tree_levels alone: 4^12 leaves
 HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
-# Fr products of one permutation: 8 full rounds of 15 + 25, 60 partial
-# rounds of 3 + 25
-HADES_PRODUCTS = 8 * (15 + 25) + 60 * (3 + 25)
+# 32-bit multiply-adds of one permutation.  The kernel's arithmetic: an S-box
+# is three Fr products of 272, a row of the MDS step ONE Montgomery dot
+# product of five pairs (5 x 64 limb products and 72 of the reduction, a low
+# and a high half each: 784); 8 full rounds of 15 products and 5 rows, 60
+# partial rounds of 3 products and 5 rows.  This bounds the kernel.  The
+# earlier bound counted the arithmetic of the first port, 25 products and 20
+# additions an MDS step, 2000 products a permutation; it is kept so that
+# the times of earlier rounds can be read against it.
+HADES_MULTIPLY_ADDS = 8 * (15 * 272 + 5 * 784) + 60 * (3 * 272 + 5 * 784)
+HADES_MULTIPLY_ADDS_2000_PRODUCTS = (8 * (15 + 25) + 60 * (3 + 25)) * 272
 # Fq products of one complete G1 addition: RCB15 algorithm 7 has 12 products
 # of variables and 2 by the constant 3b = 12, which four additions replace
 PADD_PRODUCTS = 12
@@ -104,10 +118,13 @@ PADD_PRODUCTS = 12
 WORST_COLUMN = 32 * 256 * 255 * 255
 
 # name -> (CUDA source, the Pallas kernel it replaces: mont_mul_pallas,
+# a chain of mont_mul_pallas calls that jit fuses (limb_field.mont_pow),
 # padd_pallas_2l, window_fold_pallas, butterfly_pallas, _carry_fold_pallas,
 # _fold_pallas, hades_permute_pallas, padd_pallas_ilp / padd_pallas_ilp2l)
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
+                 "zkvm_tpu/ops/pallas_field.py:232"),
+    "mont_pow": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
     "padd": ("zkvm_tpu_torch/csrc/padd.cu",
              "zkvm_tpu/ops/pallas_field.py:497"),
@@ -125,9 +142,9 @@ KERNELS = {
                  "zkvm_tpu/ops/pallas_field.py:626"),
 }
 # how the port's CUDA kernels are named in a profile
-OUR_KERNELS = ("mont_mul_kernel", "padd_kernel", "padd_ilp_kernel",
-               "window_fold_kernel", "butterfly_kernel", "fold_kernel",
-               "hades_kernel")
+OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
+               "padd_ilp_kernel", "window_fold_kernel", "butterfly_kernel",
+               "fold_kernel", "hades_kernel", "hades_coop_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
            "padd_comparison")
 
@@ -245,10 +262,17 @@ def phase_parity(rng, dev) -> dict:
                                kernels.mont_mul_plain(FQ, a, b)))
     ms = cuda_ms(lambda: kernels.mont_mul(FQ, a, b), 50)
     plain_ms = cuda_ms(lambda: kernels.mont_mul_plain(FQ, a, b), 3)
+    # an empty kernel of the same grid: what of the launch is the launch
+    threads = 128
+    empty_ms = cuda_ms(lambda: kernels.empty_launch(
+        -(-a.shape[-1] // threads), threads, dev), 50)
     rec["mont_mul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           shape="Fq [12, 65543]",
+                           shape="Fq [12, 65543]", empty_launch_ms=empty_ms,
                            **bound(3 * a.numel() * 4,
                                    mont_mul_ops(12) * a.shape[-1]))
+    del a, b
+    phase_parity_broadcast(rng, dev, rec)
+    phase_parity_pow(rng, dev, rec)
 
     # -- padd: identity, P+P, P+(-P), Q+identity on a ragged batch (CPU plain)
     n = 1000
@@ -388,6 +412,137 @@ def phase_parity(rng, dev) -> dict:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err={r['max_abs_err']})")
     return rec
+
+
+def phase_parity_broadcast(rng, dev, rec) -> None:
+    """mont_mul on operands it reads in place -- a constant column, a table
+    shared by every group, an [L, 1] lane broadcast, every second lane --
+    against the plain version on the same views (CPU copy), both fields;
+    then the shared table at the polynomial path's largest shape, timed
+    against the copy it replaces, under a profile that must show one kernel
+    and no copy."""
+    err = rec["mont_mul"]["max_abs_err"]
+    for spec in (FR, FQ):
+        n = spec.n_limbs
+        a = lf.u32_to_tensor(rand_field(spec, (3, n, 1027), rng), dev)
+        b = lf.u32_to_tensor(rand_field(spec, (3, n, 2054), rng), dev)
+        views = {"a constant column": b[0, :, :1],
+                 "a shared table": b[1, :, :1027],
+                 "a lane broadcast": b[:, :, 7:8],
+                 "every second lane": b[:, :, 1::2],
+                 "limbs innermost": b[:, :, :1027].transpose(1, 2)
+                 .contiguous().transpose(1, 2)}
+        for name, v in views.items():
+            if v.is_contiguous() and v.shape == a.shape:
+                raise AssertionError(f"mont_mul: {name} is a plain operand")
+            before = kernels.LAUNCHES["mont_mul"]
+            for x, y in ((a, v), (v, a)):
+                got = lf.mont_mul(spec, x, y)
+                want = kernels.mont_mul_plain(spec, x.cpu(), y.cpu())
+                if not got.is_contiguous() or got.shape != a.shape:
+                    raise AssertionError(f"mont_mul by {name}: bad output")
+                err = max(err, max_abs_err(got, want))
+            if kernels.LAUNCHES["mont_mul"] != before + 2:
+                raise AssertionError(f"mont_mul by {name} did not launch once")
+    rec["mont_mul"]["max_abs_err"] = err
+
+    # the polynomial path's largest broadcast: four 2^19 polynomials by one
+    # [8, 2^19] table of coset factors (`ntt._scale`)
+    x = lf.u32_to_tensor(rand_field(FR, (4, 8, N8), rng), dev)
+    table = lf.u32_to_tensor(rand_field(FR, (8, N8), rng), dev)
+    view = table.expand(x.shape)
+    if not torch.equal(lf.mont_mul(FR, x, view),
+                       kernels.mont_mul_plain(FR, x, view)):
+        raise AssertionError("mont_mul by a shared table disagrees with its "
+                             "plain version at [4, 8, 2^19]")
+    in_place = cuda_ms(lambda: lf.mont_mul(FR, x, view), 20)
+    copied = cuda_ms(lambda: kernels.mont_mul(FR, x, view.contiguous()), 20)
+    b = bound((2 * x.numel() + table.numel()) * 4,
+              mont_mul_ops(8) * x.numel() // 8)
+    rows = profiled("mont_mul [4, 8, 2^19] by a shared [8, 2^19] table",
+                    lambda: lf.mont_mul(FR, x, view), top=4)
+    if [key for key, _, _ in rows if "mont_mul_kernel" not in key]:
+        raise AssertionError(f"something ran beside the mont_mul kernel: "
+                             f"{rows}")
+    col = FR.mont_limbs(12345)
+    rows = profiled("mont_mul_const [4, 8, 2^19] by a host constant",
+                    lambda: lf.mont_mul_const(FR, x, col), top=4)
+    if any("mont_mul_kernel" not in key and "Memcpy HtoD" not in key
+           for key, _, _ in rows):
+        raise AssertionError(f"a copy kernel ran before mont_mul_const: "
+                             f"{rows}")
+    log(f"mont_mul at [4, 8, {N8}] by a shared [8, {N8}] table: read in "
+        f"place {in_place:.4f} ms, bound of the bytes it moves "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({in_place / b['bound_ms']:.2f} x); the table copied out first, "
+        f"as before, {copied:.4f} ms")
+    rec["mont_mul"].update(shared_table_ms=in_place,
+                           shared_table_bound_ms=b["bound_ms"],
+                           shared_table_copied_ms=copied)
+
+
+def pow_products(e: int) -> int:
+    """Products of MSB-first square-and-multiply from 1: one squaring a bit,
+    one product a set bit."""
+    return e.bit_length() + bin(e).count("1")
+
+
+def phase_parity_pow(rng, dev, rec) -> None:
+    """mont_pow against its plain version: both fields at [L, 65543] with
+    the exponent p - 2 (zero lanes stay zero, the others times the operand
+    give 1) and at the exponents 0, 1, 2, 5 on a ragged batch (CPU plain)."""
+    err = 0
+    for spec in (FR, FQ):
+        n, p = spec.n_limbs, spec.modulus
+        small = rand_field(spec, (3, n, 259), rng)
+        small[:, :, 0] = 0
+        small[0, :, 1] = lf.int_to_limbs(p - 1, n)
+        ts = lf.u32_to_tensor(small, "cpu")
+        for e in (0, 1, 2, 5, 0b1100101):
+            got = kernels.mont_pow(spec, ts.to(dev), e)
+            err = max(err, max_abs_err(got, kernels.mont_pow_plain(spec, ts,
+                                                                   e)))
+        a = rand_field(spec, (n, N + 7), rng)
+        a[:, :3] = 0
+        ad = lf.u32_to_tensor(a, dev)
+        inv = lf.mont_inv(spec, ad)
+        err = max(err, max_abs_err(inv, kernels.mont_pow_plain(spec, ad,
+                                                               p - 2)))
+        if inv[:, :3].any():
+            raise AssertionError("mont_inv of zero is not zero")
+        one = lf.mont_mul(spec, inv[:, 3:], ad[:, 3:])
+        if not torch.equal(one, lf.const_tensor(spec, spec.one_mont,
+                                                one.shape, dev)):
+            raise AssertionError(f"{spec.name}: a * a^(p-2) is not 1")
+        ms = cuda_ms(lambda: kernels.mont_pow(spec, ad, p - 2), 5)
+        plain_ms = cuda_ms(lambda: kernels.mont_pow_plain(spec, ad, p - 2), 1)
+
+        # the chain it replaces: one mont_mul launch a product, as before
+        def chain():
+            acc = lf.const_tensor(spec, spec.one_mont, ad.shape, dev)
+            for i in range((p - 2).bit_length() - 1, -1, -1):
+                acc = kernels.mont_mul(spec, acc, acc)
+                if ((p - 2) >> i) & 1:
+                    acc = kernels.mont_mul(spec, acc, ad)
+            return acc
+        if not torch.equal(chain(), inv):
+            raise AssertionError("mont_pow disagrees with the chain of "
+                                 "mont_mul launches")
+        chain_ms = cuda_ms(chain, 2)
+        b = bound(2 * ad.numel() * 4,
+                  pow_products(p - 2) * mont_mul_ops(n) * ad.shape[-1])
+        log(f"mont_pow {spec.name} [{n}, {N + 7}], exponent p - 2 "
+            f"({pow_products(p - 2)} products): one launch {ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']}; the same chain as "
+            f"{pow_products(p - 2)} mont_mul launches {chain_ms:.4f} ms; "
+            f"plain {plain_ms:.1f} ms")
+        if spec is FQ:
+            rec["mont_pow"] = dict(ms=ms, plain_ms=plain_ms,
+                                   shape=f"Fq [12, {N + 7}], exponent q - 2",
+                                   chain_of_mont_mul_ms=chain_ms, **b)
+        else:
+            fr_ms = ms
+    rec["mont_pow"].update(max_abs_err=err, fr_ms=fr_ms)
 
 
 def phase_product_latency(rng, dev) -> dict:
@@ -532,39 +687,70 @@ def phase_parity_ntt(rng, dev, rec) -> None:
                                2 * mont_mul_ops(8) * N))
 
 
+def hades_bounds(lanes: int) -> dict:
+    """The kernel's bound (its own arithmetic) and the earlier one (2000
+    products a permutation), same bytes."""
+    b = bound(2 * 5 * 8 * lanes * 4, HADES_MULTIPLY_ADDS * lanes)
+    old = bound(2 * 5 * 8 * lanes * 4,
+                HADES_MULTIPLY_ADDS_2000_PRODUCTS * lanes)
+    return dict(bound_2000_products_ms=old["bound_ms"], **b)
+
+
 def phase_parity_hades(rng, dev, rec) -> None:
-    """hades_permute against its plain version and the host permutation."""
-    # edge lanes on a ragged batch (CPU plain): the all-zero state, every
-    # word r - 1, and two lanes that are equal
-    lanes = 259
-    s = rand_field(FR, (5, 8, lanes), rng)
-    s[:, :, 0] = 0
-    s[:, :, 1] = lf.int_to_limbs(Q - 1, 8)
-    s[:, :, 3] = s[:, :, 2]
-    ts = lf.u32_to_tensor(s, "cpu")
+    """hades_permute against its plain version and the host permutation, at
+    sizes on both sides of the lane count at which hades.cu changes from
+    five threads a permutation to one thread a lane."""
     consts = poseidon.hades_consts(dev)
-    got = kernels.hades_permute(ts.to(dev), consts)
-    err = max_abs_err(got, kernels.hades_permute_plain(ts, consts.cpu()))
-    if not torch.equal(got[:, :, 2], got[:, :, 3]):
-        raise AssertionError("hades_permute: equal lanes give unequal states")
-    # three lanes against the host permutation, through Montgomery form
-    ints = [FR.from_mont_array(ts[w, :, :3].contiguous()) for w in range(5)]
-    outs = [FR.from_mont_array(got[w, :, :3].contiguous()) for w in range(5)]
-    for j in range(3):
-        if [o[j] for o in outs] != hades_permute([v[j] for v in ints]):
-            raise AssertionError(f"hades_permute lane {j} disagrees with "
-                                 f"the host permutation")
-    # the permutation's own shape, [5, 8, 2^14]
-    st = lf.u32_to_tensor(rand_field(FR, (5, 8, HADES_LANES), rng), dev)
-    err = max(err, max_abs_err(kernels.hades_permute(st, consts),
-                               kernels.hades_permute_plain(st, consts)))
-    ms = cuda_ms(lambda: kernels.hades_permute(st, consts), 10)
-    plain_ms = cuda_ms(lambda: kernels.hades_permute_plain(st, consts), 1)
+    cut = kernels.hades_coop_max_lanes()
+    sizes = [1, 5, 31, 259, cut - 1, cut, cut + 1, HADES_LANES, 1 << 15]
+    if not (259 < cut < HADES_LANES):
+        raise AssertionError(f"dispatch constant {cut} is not between the "
+                             f"sizes this phase checks on either side")
+    err = 0
+    times = {}
+    for lanes in sizes:
+        # edge lanes first: the all-zero state, every word r - 1, and two
+        # lanes that are equal
+        s = rand_field(FR, (5, 8, lanes), rng)
+        s[:, :, 0] = 0
+        if lanes >= 4:
+            s[:, :, 1] = lf.int_to_limbs(Q - 1, 8)
+            s[:, :, 3] = s[:, :, 2]
+        ts = lf.u32_to_tensor(s, "cpu")
+        st = ts.to(dev)
+        got = kernels.hades_permute(st, consts)
+        if lanes <= 259:   # CPU plain
+            want = kernels.hades_permute_plain(ts, consts.cpu())
+        else:              # card plain
+            want = kernels.hades_permute_plain(st, consts)
+        err = max(err, max_abs_err(got, want))
+        if lanes >= 4 and not torch.equal(got[:, :, 2], got[:, :, 3]):
+            raise AssertionError("hades_permute: equal lanes give unequal "
+                                 "states")
+        # the first lanes against the host permutation, through Montgomery
+        # form
+        k = min(lanes, 3)
+        ints = [FR.from_mont_array(ts[w, :, :k].contiguous())
+                for w in range(5)]
+        outs = [FR.from_mont_array(got[w, :, :k].contiguous())
+                for w in range(5)]
+        for j in range(k):
+            if [o[j] for o in outs] != hades_permute([v[j] for v in ints]):
+                raise AssertionError(f"hades_permute lane {j} of {lanes} "
+                                     f"disagrees with the host permutation")
+        times[lanes] = cuda_ms(lambda: kernels.hades_permute(st, consts), 10)
+        if lanes == HADES_LANES:
+            plain_ms = cuda_ms(
+                lambda: kernels.hades_permute_plain(st, consts), 1)
+    log(f"hades_permute, five threads a permutation up to {cut} lanes, one "
+        f"thread a lane above; kernel ms by lanes: "
+        + ", ".join(f"{n}: {ms:.4f}" for n, ms in times.items())
+        + "; every size equals the plain version and the host permutation")
     rec["hades_permute"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        shape=f"[5, 8, {HADES_LANES}]",
-        **bound(2 * st.numel() * 4,
-                HADES_PRODUCTS * mont_mul_ops(8) * HADES_LANES))
+        max_abs_err=err, ms=times[HADES_LANES], plain_ms=plain_ms,
+        shape=f"[5, 8, {HADES_LANES}]", dispatch_lanes=cut,
+        ms_by_lanes={str(n): ms for n, ms in times.items()},
+        **hades_bounds(HADES_LANES))
 
 
 def phase_matmul_exact(dev) -> None:
@@ -700,8 +886,8 @@ def phase_slice(rng, dev) -> dict:
         raise AssertionError("single-set commitment disagrees")
     log("commit: 4 + 1 commitments equal the native host MSM over 2^16")
 
-    require_launched(launches, ("mont_mul", "padd", "window_fold"),
-                     "commitment path")
+    require_launched(launches, ("mont_mul", "mont_pow", "padd",
+                                "window_fold"), "commitment path")
     out["launches"] = launches
     out["commit_key"] = ck
     out["opening_key"] = pp.opening_key
@@ -1080,13 +1266,15 @@ def phase_merkle(rng, dev) -> dict:
                                  3 if k >= 8 else 20))
     out["levels_ms"] = levels_ms
     out["launches_ms"] = sum(launch_ms)
+    launch_bound = sum(hades_bounds(4 ** k)["bound_ms"] for k in range(h))
     wall = out["from_leaves_s"]
     log(f"merkle path, height {h}: {n} leaves, {n_hashes} permutations in "
         f"{launches['hades_permute']} launches; from_leaves + root wall "
         f"{wall:.3f} s = {n_hashes / wall:.1f} hashes/s; device time of the "
         f"level-wise build {levels_ms:.3f} ms ({sum(launch_ms):.3f} ms in the "
         f"{h} permutation launches: "
-        f"{', '.join(f'{ms:.4f}' for ms in launch_ms)}) = "
+        f"{', '.join(f'{ms:.4f}' for ms in launch_ms)}; bound of the same "
+        f"{n_hashes} permutations {launch_bound:.3f} ms) = "
         f"{n_hashes / levels_ms * 1e3:.1f} hashes/s; host share "
         f"{1 - levels_ms / 1e3 / wall:.4f}; peak {out['peak_gib']:.3f} GiB; "
         f"{len(positions)} openings + verify {out['openings_s']:.3f} s")
@@ -1173,8 +1361,7 @@ def phase_merkle(rng, dev) -> dict:
     wall_ms = host_ms(lambda: poseidon.merkle_tree_levels(big), 2)
     st = torch.cat([big[:, :n2 // 4]] * 5).reshape(5, 8, n2 // 4)
     top_ms = cuda_ms(lambda: kernels.hades_permute(st, consts), 2)
-    b = bound(2 * st.numel() * 4,
-              HADES_PRODUCTS * mont_mul_ops(8) * (n2 // 4))
+    b = hades_bounds(n2 // 4)
     del st
     n_hashes2 = (n2 - 1) // 3
     out["levels12_ms"] = dev_ms
@@ -1182,7 +1369,10 @@ def phase_merkle(rng, dev) -> dict:
         f"permutations; first call {first_s:.3f} s, device {dev_ms:.3f} ms, "
         f"wall {wall_ms:.3f} ms = {n_hashes2 / wall_ms * 1e3:.1f} hashes/s, "
         f"peak {peak:.3f} GiB; hades_permute at [5, 8, {n2 // 4}]: "
-        f"{top_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+        f"{top_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+        f"({b['bound_2000_products_ms']:.3f} ms by the earlier count of 2000 "
+        f"products a permutation)")
+    out["levels12_top_ms"] = top_ms
     check_levels(poseidon.merkle_tree_levels(big), rng,
                  f"merkle_tree_levels at height {h2}")
     return out
@@ -1368,12 +1558,17 @@ def phase_profile(rng, dev, ck, ok) -> None:
     profiled(f"merkle_tree_levels, height {MERKLE_HEIGHT}",
              lambda: poseidon.merkle_tree_levels(leaves10))
     st = field(FR, (5, 8, HADES_LANES))
+    st_small = field(FR, (5, 8, 4096))
     consts = poseidon.hades_consts(dev)
 
     from torch.profiler import ProfilerActivity, profile
 
     for label, fn in (
             ("mont_mul Fq [12, 65543]", lambda: kernels.mont_mul(FQ, a, b)),
+            ("mont_pow Fq [12, 65543], exponent q - 2",
+             lambda: kernels.mont_pow(FQ, a, FQ.modulus - 2)),
+            ("hades_permute [5, 8, 4096]",
+             lambda: kernels.hades_permute(st_small, consts)),
             ("padd [24, 12, 32768]", lambda: kernels.padd(p, q)),
             ("padd_ilp [24, 12, 32768]", lambda: kernels.padd_ilp(p, q)),
             (f"hades_permute [5, 8, {HADES_LANES}]",
@@ -1407,9 +1602,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+        found = re.search(r"\d([a-z_]+_kernel)(?:IN2zk2(F[rq]))?", line)
+        if found:
+            entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2)
+                                      else "")
+        elif "registers" in line or "spill" in line:
+            log(f"  {entry}: {line.split(':', 1)[-1].strip()}")
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
@@ -1425,8 +1625,9 @@ def main() -> int:
         phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
 
     # launches: the sum of the counted regions, each also given apart; no
-    # single PyTorch call computes any of the eight functions, so there is
-    # no library time
+    # single PyTorch call computes any of the nine functions (a Montgomery
+    # product or power on limbs, a curve addition, a permutation over Fr),
+    # so there is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"])))

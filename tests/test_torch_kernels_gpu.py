@@ -153,6 +153,93 @@ def test_hades_permute_kernel_matches_plain(cuda, lanes):
     assert torch.equal(got.cpu(), poseidon.hades_permute_batch(state))
 
 
+@pytest.mark.parametrize("size", ["1", "5", "6", "7", "31", "259", "cut-1",
+                                  "cut", "cut+1", "2^14", "2^15"])
+def test_hades_permute_both_kernels_match_plain_and_host(cuda, size):
+    """Sizes on both sides of the dispatch constant, so that the
+    five-thread and the one-thread kernel are both held against the plain
+    version (on the card: the CPU's takes minutes at these sizes) and the
+    host permutation; ragged warps of the five-thread kernel (6 permutations
+    a warp) among them."""
+    from zkvm_tpu_torch.hashes import hades_permute
+    from zkvm_tpu_torch.ops import poseidon
+
+    cut = kernels.hades_coop_max_lanes()
+    lanes = {"cut-1": cut - 1, "cut": cut, "cut+1": cut + 1, "2^14": 1 << 14,
+             "2^15": 1 << 15}.get(size) or int(size)
+    state = _field(lf.FR, (5, 8, lanes), 29)
+    state[:, :, 0] = 0
+    state[:, :, -1] = torch.from_numpy(
+        lf.int_to_limbs(lf.FR.modulus - 1, 8).view(np.int32))
+    consts = poseidon.hades_consts(cuda)
+    on_card = state.to(cuda)
+    before = kernels.LAUNCHES["hades_permute"]
+    got = kernels.hades_permute(on_card, consts)
+    assert kernels.LAUNCHES["hades_permute"] == before + 1
+    assert torch.equal(got, kernels.hades_permute_plain(on_card, consts))
+    for j in {0, lanes // 2, lanes - 1}:
+        ins = [lf.FR.from_mont_array(state[w, :, j:j + 1])[0]
+               for w in range(5)]
+        outs = [lf.FR.from_mont_array(got[w, :, j:j + 1].contiguous())[0]
+                for w in range(5)]
+        assert outs == hades_permute(ins)
+
+
+_OPERANDS = {
+    "constant_column": lambda b: b[0, :, :1],
+    "shared_table": lambda b: b[1, :, :1027],
+    "lane_broadcast": lambda b: b[:, :, 7:8],
+    "every_second_lane": lambda b: b[:, :, 1::2],
+    "limbs_innermost": lambda b: b[:, :, :1027].transpose(1, 2).contiguous()
+    .transpose(1, 2),
+    "expanded_view": lambda b: b[2, :, :1027].expand(3, -1, -1),
+}
+
+
+@pytest.mark.parametrize("spec", [lf.FR, lf.FQ], ids=["Fr", "Fq"])
+@pytest.mark.parametrize("kind", sorted(_OPERANDS))
+def test_mont_mul_kernel_reads_broadcast_and_strided_operands(cuda, spec,
+                                                              kind):
+    a = _field(spec, (3, spec.n_limbs, 1027), 30)
+    b = _field(spec, (3, spec.n_limbs, 2054), 31)
+    view = _OPERANDS[kind](b.to(cuda))
+    on_card = a.to(cuda)
+    want = kernels.mont_mul_plain(spec, a, _OPERANDS[kind](b))
+    for x, y in ((on_card, view), (view, on_card)):
+        before = kernels.LAUNCHES["mont_mul"]
+        got = lf.mont_mul(spec, x, y)
+        assert kernels.LAUNCHES["mont_mul"] == before + 1
+        assert got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+def test_mont_mul_wrapper_raises_on_card(cuda):
+    a = _field(lf.FR, (4, 3, 8, 64), 32).to(cuda)
+    with pytest.raises(ValueError, match="cannot be read in place"):
+        kernels.mont_mul(lf.FR, a, a[:, :1])
+    with pytest.raises(ValueError):
+        kernels.mont_mul(lf.FR, a, a.cpu())
+    assert torch.equal(lf.mont_mul(lf.FR, a, a[:, :1]),
+                       lf.mont_mul(lf.FR, a, a[:, :1].expand(a.shape)
+                                   .contiguous()))
+
+
+@pytest.mark.parametrize("spec", [lf.FR, lf.FQ], ids=["Fr", "Fq"])
+@pytest.mark.parametrize("e", ["0", "1", "2", "5", "0b1100101", "p-2"])
+def test_mont_pow_kernel_matches_plain(cuda, spec, e):
+    """One launch for the whole chain; zero lanes stay zero (one for e = 0),
+    a ragged batch with a leading group axis."""
+    e = spec.modulus - 2 if e == "p-2" else int(e, 0)
+    a = _field(spec, (2, spec.n_limbs, 515), 33)
+    a[:, :, 0] = 0
+    a[0, :, 1] = torch.from_numpy(
+        lf.int_to_limbs(spec.modulus - 1, spec.n_limbs).view(np.int32))
+    before = dict(kernels.LAUNCHES)
+    got = lf.mont_pow(spec, a.to(cuda), e)
+    assert kernels.LAUNCHES["mont_pow"] == before["mont_pow"] + 1
+    assert kernels.LAUNCHES["mont_mul"] == before["mont_mul"]
+    assert torch.equal(got.cpu(), kernels.mont_pow_plain(spec, a, e))
+
+
 def test_from_leaves_on_card_matches_cpu(cuda):
     from zkvm_tpu_torch.merkle import Item, PoseidonTree
 

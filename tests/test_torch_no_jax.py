@@ -94,6 +94,12 @@ def test_kernel_wrappers_refuse_other_devices_and_layouts():
     cpu = torch.zeros((8, 4), dtype=torch.int32)
     with pytest.raises(TypeError):
         kernels.mont_mul(FR, cpu.to(torch.int64), cpu.to(torch.int64))
+    # every second lane is read in place; leading axes that do not collapse
+    # into one are not, and the power chain takes contiguous operands only
     strided = torch.zeros((8, 8), dtype=torch.int32)[:, ::2]
+    assert kernels.mont_mul(FR, strided, strided).shape == (8, 4)
+    wide = torch.zeros((3, 4, 8, 6), dtype=torch.int32)[:, :3]
+    with pytest.raises(ValueError, match="cannot be read in place"):
+        kernels.mont_mul(FR, wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.mont_mul(FR, strided, strided)
+        kernels.mont_pow(FR, strided, 3)

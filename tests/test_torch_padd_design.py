@@ -41,6 +41,9 @@ import numpy as np
 import pytest
 import torch
 
+from ptx_model import (calls as _calls, check_operands_all_used,
+                       function_body, parse_chains)
+from ptx_model import run_chain as ptx_run_chain
 from zkvm_tpu.curves.g1 import G1Affine as RG1Affine
 from zkvm_tpu.fields import Fp as RFp
 from zkvm_tpu.ops import g1_ops as rg1
@@ -64,88 +67,18 @@ HEADER = (Path(kernels.CSRC) / "fq_lazy.cuh").read_text()
 # The inline PTX of the header, parsed and executed
 # -----------------------------------------------------------------------------
 
-def _parse_chains(text: str) -> dict:
-    """name -> (parameter names, instructions, operand expressions) of every
-    function of the header whose body holds one asm statement."""
-    chains = {}
-    pattern = re.compile(
-        r"__device__ __forceinline__ \w+ (\w+)\(([^)]*)\) \{(?:[^{}]*?)"
-        r"asm\(((?:\s*\"[^\"]*\")+)\s*:([^:;]*):([^:;]*)\);", re.S)
-    for name, params, strings, outs, ins in pattern.findall(text):
-        code = "".join(re.findall(r"\"([^\"]*)\"", strings))
-        code = code.replace("\\n\\t", "")
-        instrs = [i.strip() for i in code.split(";") if i.strip()]
-        operands = re.findall(r"\"[+=]?r\"\(([^)]*)\)", outs + "," + ins)
-        names = [p.split()[-1].lstrip("*&") for p in params.split(",")]
-        chains[name] = (names, instrs, operands)
-    return chains
-
-
-CHAINS = _parse_chains(HEADER)
+CHAINS = parse_chains(HEADER)
 
 
 def run_chain(name: str, *args):
-    """Execute the asm statement of `name` on Python lists of 32-bit words
-    (arrays, updated in place) and ints (scalars).  Returns (the scalars
-    after the statement, whether the LAST instruction wrapped)."""
-    names, instrs, operands = CHAINS[name]
-    env = dict(zip(names, args))
-    if name == "sub12":
-        env["mask"] = 0
-    scalars = {k: v for k, v in env.items() if not isinstance(v, list)}
-
-    def ref(expr):
-        m = re.fullmatch(r"(\w+)\[(\d+)\]", expr)
-        return (m.group(1), int(m.group(2))) if m else (expr, None)
-
-    def get(tok):
-        if not tok.startswith("%"):
-            return int(tok)
-        key, idx = ref(operands[int(tok[1:])])
-        return env[key][idx] if idx is not None else scalars[key]
-
-    def put(tok, value):
-        key, idx = ref(operands[int(tok[1:])])
-        if idx is not None:
-            env[key][idx] = value
-        else:
-            scalars[key] = value
-
-    carry = 0
-    wrapped = False
-    for ins in instrs:
-        op, rest = ins.split(None, 1)
-        toks = [t.strip() for t in rest.split(",")]
-        parts = op.split(".")
-        base, half, sets = parts[0], None, "cc" in parts
-        assert parts[-1] == "u32", ins
-        if base in ("mad", "madc"):
-            half = parts[1]
-            prod = get(toks[1]) * get(toks[2])
-            prod = prod & M32 if half == "lo" else prod >> 32
-            total = prod + get(toks[3]) + (carry if base == "madc" else 0)
-        elif base in ("add", "addc"):
-            total = get(toks[1]) + get(toks[2]) + (carry if base == "addc"
-                                                   else 0)
-        elif base in ("sub", "subc"):
-            total = get(toks[1]) - get(toks[2]) - (carry if base == "subc"
-                                                   else 0)
-        else:
-            raise AssertionError(f"unknown instruction {ins}")
-        wrapped = not 0 <= total <= M32
-        if sets:
-            carry = 1 if wrapped else 0
-        put(toks[0], total & M32)
-    return scalars, wrapped
+    """Execute the asm statement of the header's function `name`."""
+    return ptx_run_chain(CHAINS, name, *args)
 
 
 def test_header_chains_are_all_parsed():
     assert sorted(CHAINS) == ["add12", "mad6_carry", "mad6_drop", "merge",
                               "shift_mad6", "sub12"]
-    for name, (_, instrs, operands) in CHAINS.items():
-        assert len(operands) <= 30, name
-        used = {int(t) for i in instrs for t in re.findall(r"%(\d+)", i)}
-        assert used == set(range(len(operands))), name
+    check_operands_all_used(CHAINS)
     # the constants the model takes from Python are the header's
     two_q = [int(v, 16) for v in re.findall(
         r"0x[0-9a-f]{8}", HEADER[HEADER.index("q2(int i)"):][:400])]
@@ -156,18 +89,7 @@ def test_header_chains_are_all_parsed():
 
 
 def _body(name: str) -> str:
-    """The source of the header's function `name`, between its braces."""
-    start = re.search(r"\bvoid %s\([^)]*\) \{" % name, HEADER).end()
-    depth, i = 1, start
-    while depth:
-        depth += {"{": 1, "}": -1}.get(HEADER[i], 0)
-        i += 1
-    return HEADER[start:i - 1]
-
-
-def _calls(body: str, name: str) -> list[str]:
-    """The argument lists of every call of `name` in `body`, in order."""
-    return re.findall(r"\b%s\(([^;]*)\);" % name, body)
+    return function_body(HEADER, name)
 
 
 def test_header_structure_is_what_the_model_transcribes():

@@ -1,15 +1,22 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Eight kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Nine kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
-  * `mont_mul`     replaces `pallas_field.mont_mul_pallas`
+  * `mont_mul`     replaces `pallas_field.mont_mul_pallas` (reads broadcast
+                   and strided operands in place)
+  * `mont_pow`     replaces a chain of `mont_mul_pallas` calls that `jit`
+                   fuses into one program (`limb_field.mont_pow`): a^e for
+                   one host exponent in one launch
   * `padd`         replaces `pallas_field.padd_pallas_2l` (reads strided
                    operands in place)
   * `window_fold`  replaces `pallas_field.window_fold_pallas`
   * `butterfly`    replaces `pallas_field.butterfly_pallas`
   * `carry_fold`   replaces `ntt_mxu._carry_fold_pallas`
   * `fold`         replaces `ntt_mxu._fold_pallas`
-  * `hades_permute` replaces `pallas_field.hades_permute_pallas`
+  * `hades_permute` replaces `pallas_field.hades_permute_pallas` (two
+                   kernels behind one entry: one thread a lane, or five
+                   threads a lane for a launch too small to fill the card;
+                   `csrc/hades.cu` picks by the lane count)
   * `padd_ilp`     replaces `pallas_field.padd_pallas_ilp` / `_ilp2l`
 
 They are compiled with `nvcc` (one process per source, all started
@@ -17,10 +24,13 @@ together) and linked into one shared library with a plain C interface on
 first use (never at import), cached under `zkvm_tpu_torch/build/` by a hash
 of the sources, and bound with ctypes.
 
-`padd` and `window_fold` share the lazily reduced carry-flag arithmetic of
-`csrc/fq_lazy.cuh`; the other kernels use `csrc/field.cuh`.  `fq_mul_chain`
-is a measuring probe (one warp, a chain of dependent Fq products), not a
-kernel of any path: it has no count.
+`padd`, `window_fold` and the Fq chain of `mont_pow` share the lazily
+reduced carry-flag arithmetic of `csrc/fq_lazy.cuh`; `hades_permute` and the
+Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr leaves less room: its
+ranges are stated there); the other kernels use `csrc/field.cuh`.
+`fq_mul_chain` (one warp, a chain of dependent Fq products) and
+`empty_launch` are measuring probes, not kernels of any path: they have no
+count.
 
 Each wrapper checks dtype, shape, device and layout, allocates its
 outputs, launches on the current stream and adds one to `LAUNCHES[name]`.
@@ -33,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,12 +61,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
             "ntt_fold.cu", "hades.cu", "padd_ilp.cu")
-_HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh")
+_HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"mont_mul": 0, "padd": 0, "window_fold": 0, "butterfly": 0,
-            "carry_fold": 0, "fold": 0, "hades_permute": 0, "padd_ilp": 0}
+LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
+            "butterfly": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
+            "padd_ilp": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -119,7 +131,9 @@ def build() -> float:
         for o in objs:
             o.unlink()
     lib = ctypes.CDLL(str(so))
-    lib.zk_mont_mul.argtypes = [_I, _P, _P, _P, _LL, _LL, _P]
+    lib.zk_mont_mul.argtypes = [_I, _P, _P, _P, _LL, _LL, _P, _P]
+    lib.zk_mont_pow.argtypes = [_I, _P, _P, _P, _I, _LL, _LL, _P]
+    lib.zk_empty_launch.argtypes = [_LL, _I, _P]
     lib.zk_padd.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
     lib.zk_fq_chain.argtypes = [_P, _P, _I, _I, _P]
     lib.zk_window_fold.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
@@ -128,9 +142,10 @@ def build() -> float:
     lib.zk_fold.argtypes = [_P, _P, _LL, _P]
     lib.zk_hades_permute.argtypes = [_P, _P, _P, _LL, _P]
     lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P]
-    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_window_fold,
-               lib.zk_butterfly, lib.zk_carry_fold, lib.zk_fold,
-               lib.zk_hades_permute, lib.zk_padd_ilp, lib.zk_fq_chain):
+    for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
+               lib.zk_padd, lib.zk_window_fold, lib.zk_butterfly,
+               lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
+               lib.zk_padd_ilp, lib.zk_fq_chain):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -174,29 +189,174 @@ def _stream(dev: torch.device):
 # mont_mul
 # -----------------------------------------------------------------------------
 
+def _strided_layout(sizes, strides):
+    """(group, limb, lane) strides in elements of a [..., L, B] view with
+    these sizes and strides whose leading axes collapse into one group axis
+    (stride[k] = stride[k + 1] * size[k + 1]; a broadcast axis has stride
+    0), else None.  The limb and lane strides are free."""
+    lead = [(n, s) for n, s in zip(sizes[:-2], strides[:-2]) if n != 1]
+    for (_, s0), (n1, s1) in zip(lead, lead[1:]):
+        if s0 != s1 * n1:
+            return None
+    return (lead[-1][1] if lead else 0, strides[-2], strides[-1])
+
+
+def mont_mul_shape(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The [..., L, B] shape two mont_mul operands broadcast to (the limb
+    axis taken as it is: `mont_mul` checks it)."""
+    sa, sb = tuple(a.shape), tuple(b.shape)
+    if sa == sb:
+        return sa
+    if len(sa) < len(sb):
+        sa, sb = sb, sa
+    sb = (1,) * (len(sa) - len(sb)) + sb
+    for n, m in zip(sa, sb):
+        if n != m and n != 1 and m != 1:
+            raise ValueError(f"mont_mul: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)} do not broadcast")
+    return tuple(max(n, m) if n and m else 0 for n, m in zip(sa, sb))
+
+
+def mont_mul_layout(t: torch.Tensor, shape):
+    """(group, limb, lane) strides in elements if the mont_mul kernel can
+    read `t`, broadcast to the [..., L, B] `shape`, in place, else None.  It
+    can when `t` has the limb axis at -2 in full and its leading axes, as
+    broadcast, collapse into one group axis: a constant column [L, 1], one
+    table shared by every leading group, every second lane, a slice of the
+    lanes."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        if t.is_contiguous():
+            return (shape[-2] * shape[-1], shape[-1], 1)
+        return _strided_layout(shape, t.stride())
+    pad = len(shape) - t.dim()
+    if t.dim() < 2 or pad < 0 or t.shape[-2] != shape[-2]:
+        return None
+    strides = [0] * pad
+    for n, m, stride in zip(t.shape, shape[pad:], t.stride()):
+        if n != m and n != 1:
+            return None
+        strides.append(stride if n == m else 0)  # a broadcast axis
+    return _strided_layout(shape, strides)
+
+
+def _mont_operands(name: str, spec: lf.FieldSpec, tensors) -> torch.device:
+    """What every Montgomery kernel asks of its operands; their device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if t.dim() < 2 or t.shape[-2] != spec.n_limbs:
+            raise ValueError(f"{name}: limb axis of {tuple(t.shape)} is not "
+                             f"{spec.n_limbs}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
 def mont_mul_plain(spec: lf.FieldSpec, a: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
-    """Plain version of the mont_mul kernel."""
-    return lf.join16(lf.mont_mul16(spec, lf.split16(a), lf.split16(b)))
+    """Plain version of the mont_mul kernel, on the same (broadcast or
+    strided) operands."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    wide = shape[:-2] + (2 * shape[-2],) + shape[-1:]
+    return lf.join16(lf.mont_mul16(spec, lf.split16(a).expand(wide),
+                                   lf.split16(b)))
 
 
 def mont_mul(spec: lf.FieldSpec, a: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
-    """Elementwise Montgomery product of [..., L, B] int32 tensors."""
-    dev = _check("mont_mul", (a, b), a.shape, spec.n_limbs)
+    """Elementwise Montgomery product of int32 limb tensors that broadcast
+    to one [..., L, B] shape.  Each operand is read in place through its
+    strides (see `mont_mul_layout`); what cannot be raises.  The result is
+    contiguous."""
+    dev = _mont_operands("mont_mul", spec, (a, b))
+    shape = mont_mul_shape(a, b)
+    layouts = (mont_mul_layout(a, shape), mont_mul_layout(b, shape))
+    for t, layout in zip((a, b), layouts):
+        if layout is None:
+            raise ValueError(
+                f"mont_mul: an operand of shape {tuple(t.shape)} and strides "
+                f"{t.stride()} cannot be read in place as {shape}: its "
+                f"leading axes must collapse into one")
     if dev.type == "cpu":
         return mont_mul_plain(spec, a, b)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    build()
+    lanes = shape[-1]
+    groups = out.numel() // (spec.n_limbs * lanes)
+    strides = (ctypes.c_longlong * 6)(*layouts[0], *layouts[1])
+    with torch.cuda.device(dev):
+        _launch("mont_mul", _lib.zk_mont_mul, _FIELD_ID[spec.name],
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), groups, lanes,
+                strides, _stream(dev))
+    return out
+
+
+# -----------------------------------------------------------------------------
+# mont_pow
+# -----------------------------------------------------------------------------
+
+MAX_EXPONENT_BITS = 384
+
+
+def mont_pow_plain(spec: lf.FieldSpec, a: torch.Tensor,
+                   e: int) -> torch.Tensor:
+    """Plain version of the mont_pow kernel: MSB-first square-and-multiply
+    from 1, one plain product a squaring and one a set bit (the loop of the
+    reference's `mont_pow`)."""
+    w = lf.split16(a)
+    acc = lf.const16(spec, spec.one_mont, w).expand(w.shape)
+    for i in range(e.bit_length() - 1, -1, -1):
+        acc = lf.mont_mul16(spec, acc, acc)
+        if (e >> i) & 1:
+            acc = lf.mont_mul16(spec, acc, w)
+    return lf.join16(acc.contiguous())
+
+
+def mont_pow(spec: lf.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (Montgomery in and out) over a contiguous [..., L, B] int32
+    tensor, for one non-negative host exponent of at most 384 bits: the
+    whole chain in one launch.  Zero stays zero for e > 0; e = 0 gives 1."""
+    dev = _mont_operands("mont_pow", spec, (a,))
+    if not a.is_contiguous():
+        raise ValueError("mont_pow: the operand must be contiguous")
+    if e < 0 or e.bit_length() > MAX_EXPONENT_BITS:
+        raise ValueError(f"mont_pow: exponent of {e.bit_length()} bits "
+                         f"(sign {'-' if e < 0 else '+'}) is not in "
+                         f"[0, 2^{MAX_EXPONENT_BITS})")
+    if dev.type == "cpu":
+        return mont_pow_plain(spec, a, e)
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
     build()
     lanes = a.shape[-1]
     groups = a.numel() // (spec.n_limbs * lanes)
+    bits = e.bit_length()
+    words = (ctypes.c_uint32 * (MAX_EXPONENT_BITS // 32))(
+        *((e >> (32 * i)) & lf.M32 for i in range((bits + 31) // 32)))
     with torch.cuda.device(dev):
-        _launch("mont_mul", _lib.zk_mont_mul, _FIELD_ID[spec.name],
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), groups, lanes,
+        _launch("mont_pow", _lib.zk_mont_pow, _FIELD_ID[spec.name],
+                a.data_ptr(), out.data_ptr(), words, bits, groups, lanes,
                 _stream(dev))
     return out
+
+
+def empty_launch(blocks: int, threads: int, dev: torch.device) -> None:
+    """A measuring probe, not a kernel of any path: launch an empty kernel
+    of `blocks` blocks of `threads`, so that a run can say how much of a
+    short launch is the launch itself."""
+    build()
+    with torch.cuda.device(dev):
+        rc = _lib.zk_empty_launch(blocks, threads, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"empty launch failed: "
+                           f"{_lib.zk_error_string(rc).decode()} ({rc})")
 
 
 # -----------------------------------------------------------------------------
@@ -250,11 +410,7 @@ def padd_layout(point):
     if x.dim() < 2 or any(t.shape != x.shape or t.stride() != x.stride()
                           for t in point[1:]):
         return None
-    lead = [(n, s) for n, s in zip(x.shape[:-2], x.stride()[:-2]) if n != 1]
-    for (_, s0), (n1, s1) in zip(lead, lead[1:]):
-        if s0 != s1 * n1:
-            return None
-    return (lead[-1][1] if lead else 0, x.stride(-2), x.stride(-1))
+    return _strided_layout(x.shape, x.stride())
 
 
 def _add_points(name: str, p, q, layouts):
@@ -548,6 +704,15 @@ _HADES_HALF = params.HADES_FULL_ROUNDS // 2
 HADES_CONST_ROWS = HADES_ROUNDS * HADES_WIDTH + HADES_WIDTH * HADES_WIDTH
 
 
+def hades_coop_max_lanes() -> int:
+    """The lane count up to which `csrc/hades.cu` takes its five-thread
+    kernel, read out of the source (for the checks that want a size on
+    either side of it; the wrapper itself does not choose)."""
+    found = re.search(r"kCoopMaxLanes = (\d+);",
+                      (CSRC / "hades.cu").read_text())
+    return int(found.group(1))
+
+
 def hades_full_round(r: int) -> bool:
     """Rounds 0-3 and 64-67 put every word through the S-box, rounds 4-63
     only the last."""
@@ -583,7 +748,8 @@ def hades_permute_plain(state: torch.Tensor,
 def hades_permute(state: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
     """68 Hades rounds over a [5, 8, B] int32 Montgomery state.  `consts`
     is the [365, 8] int32 Montgomery table of round constants and MDS
-    matrix (`ops/poseidon.py` builds it once per device)."""
+    matrix (`ops/poseidon.py` builds it once per device).  One launch; the
+    source picks five threads a permutation or one thread a lane by B."""
     dev = _check("hades_permute", (state,),
                  (HADES_WIDTH, FR.n_limbs, state.shape[-1]), FR.n_limbs)
     if (_check_rows("hades_permute", consts, HADES_CONST_ROWS) != dev

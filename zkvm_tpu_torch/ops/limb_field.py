@@ -13,8 +13,11 @@ them as `uint32_t`).  torch's CPU `uint32` lacks `+`, `>>` and `>`, so the
 plain arithmetic below widens to int64 with 16-bit limbs ("16-bit wide"
 form, `[..., 2L, B]`): limb products stay below 2^32 and lazy column sums
 far below 2^63.  These plain functions run on any device; the Montgomery
-multiply dispatches to the CUDA kernel for a CUDA tensor
-(`kernels.mont_mul`) and to `mont_mul16` only for a CPU tensor.
+multiply and the power dispatch to the CUDA kernels for a CUDA tensor
+(`kernels.mont_mul`, `kernels.mont_pow`) and to `mont_mul16` only for a CPU
+tensor.  The multiply reads broadcast and strided operands in place: a
+caller hands over an `[L, 1]` column or an expanded view and nothing of the
+full shape is made for it.
 """
 
 from __future__ import annotations
@@ -345,10 +348,16 @@ def const_tensor(spec: FieldSpec, limbs32, shape, device) -> torch.Tensor:
 def mont_mul(spec: FieldSpec, a: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^{-1} mod p through the mont_mul kernel (its
-    plain version for a CPU tensor)."""
+    plain version for a CPU tensor).  The operands broadcast to one
+    [..., L, B] shape; each is handed over as it is where the kernel can
+    read it in place (`kernels.mont_mul_layout`), and copied only where it
+    cannot."""
     from . import kernels  # kernels imports this module
 
-    return kernels.mont_mul(spec, a.contiguous(), b.contiguous())
+    shape = kernels.mont_mul_shape(a, b)
+    a, b = (t if kernels.mont_mul_layout(t, shape) is not None
+            else t.expand(shape).contiguous() for t in (a, b))
+    return kernels.mont_mul(spec, a, b)
 
 
 def mont_square(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -356,8 +365,11 @@ def mont_square(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_mul_const(spec: FieldSpec, a: torch.Tensor, c_limbs) -> torch.Tensor:
-    """Montgomery product with a host-constant operand (32-bit limbs)."""
-    return mont_mul(spec, a, const_tensor(spec, c_limbs, a.shape, a.device))
+    """Montgomery product with a host-constant operand (32-bit limbs), which
+    the kernel reads as one [L, 1] column."""
+    col = u32_to_tensor(np.asarray(c_limbs, dtype=np.uint32)[:, None],
+                        a.device)
+    return mont_mul(spec, a, col)
 
 
 def to_mont(spec: FieldSpec, a_raw: torch.Tensor) -> torch.Tensor:
@@ -372,14 +384,12 @@ def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e (Montgomery in/out) for a host exponent: MSB-first
-    square-and-multiply, one kernel multiply per step (the bits are host
-    constants, so no select is needed)."""
-    acc = const_tensor(spec, spec.one_mont, a.shape, a.device)
-    for i in range(e.bit_length() - 1, -1, -1):
-        acc = mont_square(spec, acc)
-        if (e >> i) & 1:
-            acc = mont_mul(spec, acc, a)
-    return acc
+    square-and-multiply from 1, the whole chain in ONE launch of the
+    mont_pow kernel for a CUDA tensor (the bits are the same for every
+    lane), a loop of plain products for a CPU tensor."""
+    from . import kernels  # kernels imports this module
+
+    return kernels.mont_pow(spec, a.contiguous(), e)
 
 
 def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
