@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's KZG commitment path, the polynomial path of a prover
-round and the Poseidon/Merkle path once on one NVIDIA GPU.
+"""Drive the port's PLONK prover (setup -> compile -> prove -> verify), its
+KZG commitment path, the polynomial path of a prover round and the
+Poseidon/Merkle path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -8,7 +9,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the nine CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the ten CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
@@ -18,7 +19,12 @@ Phases (any failure exits non-zero; no phase catches its own error):
      copy kernel, and beside an empty launch of its grid; mont_pow at the
      SRS normalisation's shape (exponent p - 2) and at small exponents;
      hades_permute on both sides of the lane count at which hades.cu
-     changes kernels; padd also on strided operands read in place (even /
+     changes kernels; field_addsub (add, sub, neg; Fr at [8, 2^19], Fq at
+     [12, 65543]) with and without its lane mask, on contiguous operands,
+     an [L, 1] column, a lane broadcast, every second lane and limbs
+     innermost, at the edge values 0, 1, p - 1 and R mod p, beside its byte
+     bound and an empty launch of its grid, under a profile that must show
+     that kernel alone; padd also on strided operands read in place (even /
      odd lanes, halves, limbs innermost) and under each of its launch
      bounds; window_fold at four sets and at one, with the time of one
      addition of its chain beside the latency of one dependent Fq product
@@ -52,11 +58,26 @@ Phases (any failure exits non-zero; no phase catches its own error):
      native host sum;
   8. transform times, both routes, 1 and 4 polynomials;
      with --profile, also where the device time goes (torch.profiler);
-  9. every kernel's launch count must be above zero in some region.  The
+  9. the dryrun prove: PublicParameters.setup(2^11, StdRng(42), "cuda"),
+     Compiler.compile_with_circuit of the height-1 opening circuit with the
+     label b"dryrun", prove under StdRng(7): the proof bytes must equal
+     tests/fixtures/dryrun_proof_v1.bin (read as a file) and the public
+     inputs its tail; the port's Verifier accepts the proof and refuses it
+     with a public input changed;
+ 10. the flagship prove at full width: MultiOpeningCircuit.default_for(3,
+     21) (2^16 gates), setup 2^17 under StdRng(42), compile with the label
+     b"flagship", a first prove and three warm proves under StdRng(7) (the
+     three proofs byte-identical), verify and the refusal of a changed
+     public input; it prints setup, compile, first and warm prove times,
+     the per-round spans averaged over the warm proves, verify ms, peak
+     device memory, the device's busy share of one warm prove
+     (torch.profiler), the gates and the domain size;
+ 11. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
      whole-transform cross-checks (the only callers of butterfly and fold),
-     the Merkle path and the padd comparison, reported apart.
+     the Merkle path, the padd comparison and one warm flagship prove,
+     reported apart.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -72,6 +93,7 @@ import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -87,10 +109,13 @@ from zkvm_tpu_torch.ops import (g1_ops, kernels, ntt, ntt_mxu,  # noqa: E402
                                 poseidon)
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk import dpoly, kzg10  # noqa: E402
+from zkvm_tpu_torch.plonk import (Compiler, PlonkError, dpoly,  # noqa: E402
+                                  kzg10)
 from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
                                         PublicParameters, powers_of)
 from zkvm_tpu_torch.rng import StdRng  # noqa: E402
+from zkvm_tpu_torch.service.batch import MultiOpeningCircuit  # noqa: E402
+from zkvm_tpu_torch.utils import dryrun, metrics  # noqa: E402
 
 SEED = 2026
 LOG_N = 16
@@ -100,6 +125,10 @@ Q = FR.modulus
 MERKLE_HEIGHT = 10        # PoseidonTree.from_leaves: 4^10 leaves
 LEVELS_HEIGHT = 12        # merkle_tree_levels alone: 4^12 leaves
 HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
+# the flagship circuit (tools/bench_flagship.py): 21 openings of a height-3
+# tree in one circuit, 2^16 gates, on an SRS of 2^17
+FLAGSHIP_HEIGHT, FLAGSHIP_COUNT, FLAGSHIP_SETUP_LOG = 3, 21, 17
+FLAGSHIP_WARM_PROVES = 3
 # 32-bit multiply-adds of one permutation.  The kernel's arithmetic: an S-box
 # is three Fr products of 272, a row of the MDS step ONE Montgomery dot
 # product of five pairs (5 x 64 limb products and 72 of the reduction, a low
@@ -120,7 +149,9 @@ WORST_COLUMN = 32 * 256 * 255 * 255
 # name -> (CUDA source, the Pallas kernel it replaces: mont_mul_pallas,
 # a chain of mont_mul_pallas calls that jit fuses (limb_field.mont_pow),
 # padd_pallas_2l, window_fold_pallas, butterfly_pallas, _carry_fold_pallas,
-# _fold_pallas, hades_permute_pallas, padd_pallas_ilp / padd_pallas_ilp2l)
+# _fold_pallas, hades_permute_pallas, padd_pallas_ilp / padd_pallas_ilp2l,
+# and the field additions that jit fuses into every program: add / sub / neg
+# of limb_field, which have no Pallas site of their own)
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -140,13 +171,16 @@ KERNELS = {
                       "zkvm_tpu/ops/pallas_field.py:308"),
     "padd_ilp": ("zkvm_tpu_torch/csrc/padd_ilp.cu",
                  "zkvm_tpu/ops/pallas_field.py:626"),
+    "field_addsub": ("zkvm_tpu_torch/csrc/field_addsub.cu",
+                     "zkvm_tpu/ops/limb_field.py:205"),
 }
 # how the port's CUDA kernels are named in a profile
 OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "padd_ilp_kernel", "window_fold_kernel", "butterfly_kernel",
-               "fold_kernel", "hades_kernel", "hades_coop_kernel")
+               "fold_kernel", "hades_kernel", "hades_coop_kernel",
+               "field_addsub_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
-           "padd_comparison")
+           "padd_comparison", "prove_path")
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
@@ -273,6 +307,7 @@ def phase_parity(rng, dev) -> dict:
     del a, b
     phase_parity_broadcast(rng, dev, rec)
     phase_parity_pow(rng, dev, rec)
+    phase_parity_addsub(rng, dev, rec)
 
     # -- padd: identity, P+P, P+(-P), Q+identity on a ragged batch (CPU plain)
     n = 1000
@@ -479,6 +514,96 @@ def phase_parity_broadcast(rng, dev, rec) -> None:
     rec["mont_mul"].update(shared_table_ms=in_place,
                            shared_table_bound_ms=b["bound_ms"],
                            shared_table_copied_ms=copied)
+
+def phase_parity_addsub(rng, dev, rec) -> None:
+    """field_addsub against its plain version on the same card tensors, bit
+    for bit: add, sub and neg, with and without the lane mask, on every
+    layout the kernel reads in place, at the edge values 0, 1, p - 1 and
+    R mod p; Fr at the quotient round's [8, 2^19], Fq at [12, 65543].
+    Then its time against the byte bound and an empty launch of its grid,
+    and a profile that must show that kernel alone (no copy before it)."""
+    err = 0
+    shapes = {"Fr": (FR, N8), "Fq": (FQ, N + 7)}
+    for spec, lanes in shapes.values():
+        n, p = spec.n_limbs, spec.modulus
+        edges = [0, 1, p - 1, spec.R]
+        arr = rand_field(spec, (n, 2 * lanes), rng)
+        set_lanes(arr, spec, edges * 2)
+        b2 = lf.u32_to_tensor(arr, dev)
+        arr = rand_field(spec, (n, lanes), rng)
+        set_lanes(arr, spec, [v for v in edges for _ in edges])
+        a = lf.u32_to_tensor(arr, dev)
+        b = b2[:, :lanes]
+        small = lf.u32_to_tensor(rand_field(spec, (3, n, 1027), rng), dev)
+        views = {"contiguous": (a, b.contiguous()),
+                 "an [L, 1] column": (a, b[:, 5:6]),
+                 "every second lane": (a, b2[:, 1::2]),
+                 "limbs innermost": (a, b.T.contiguous().T),
+                 "a lane broadcast": (small, small[:, :, 2:3])}
+        for masked in (False, True):
+            for name, (x, y) in views.items():
+                mask = (torch.rand(x.shape[:-2] + x.shape[-1:], device=dev)
+                        < 0.5) if masked else None
+                for op in ("add", "sub", "neg"):
+                    second = None if op == "neg" else y
+                    before = kernels.LAUNCHES["field_addsub"]
+                    got = kernels.field_addsub(spec, op, x, second, mask)
+                    if kernels.LAUNCHES["field_addsub"] != before + 1:
+                        raise AssertionError(f"field_addsub {op} by {name} "
+                                             f"did not launch once")
+                    want = kernels.field_addsub_plain(spec, op, x, second,
+                                                      mask)
+                    if not got.is_contiguous():
+                        raise AssertionError("field_addsub: bad output")
+                    err = max(err, max_abs_err(got, want))
+        # the edge values against the host, once, on a CPU copy
+        host = [lf.raw_to_ints(spec, kernels.field_addsub(
+            spec, op, a[:, :16], None if op == "neg" else b[:, :16]))
+            for op in ("add", "sub", "neg")]
+        xs, ys = (lf.raw_to_ints(spec, t[:, :16]) for t in (a, b))
+        if host != [[(u + v) % p for u, v in zip(xs, ys)],
+                    [(u - v) % p for u, v in zip(xs, ys)],
+                    [(-u) % p for u in xs]]:
+            raise AssertionError(f"field_addsub {spec.name} disagrees with "
+                                 f"the host at the edge values")
+        if spec is FR:
+            fr = (a, b)
+    if err:
+        raise AssertionError(f"field_addsub disagrees with its plain version "
+                             f"(max limb difference {err})")
+    a, b = fr
+    ms = cuda_ms(lambda: kernels.field_addsub(FR, "add", a, b), 50)
+    plain_ms = cuda_ms(lambda: kernels.field_addsub_plain(FR, "add", a, b), 3)
+    threads = 128
+    empty_ms = cuda_ms(lambda: kernels.empty_launch(
+        -(-a.shape[-1] // threads), threads, dev), 50)
+    col = b[:, 5:6]
+    mask = torch.rand(a.shape[-1], device=dev) < 0.5
+    times = {"sub by an [8, 1] column":
+             cuda_ms(lambda: kernels.field_addsub(FR, "sub", a, col), 50),
+             "masked neg": cuda_ms(
+                 lambda: kernels.field_addsub(FR, "neg", a, None, mask), 50)}
+    for label, fn in (("field_addsub sub by an [8, 1] column",
+                       lambda: lf.sub(FR, a, col)),
+                      ("field_addsub masked neg of every second lane",
+                       lambda: lf.neg(FR, b[:, ::2],
+                                      mask=mask[:a.shape[-1] // 2]))):
+        rows = profiled(label, fn, top=4, reps=20)
+        if [key for key, _, _ in rows if "field_addsub_kernel" not in key]:
+            raise AssertionError(f"something ran beside the field_addsub "
+                                 f"kernel: {rows}")
+    b_ = bound(3 * a.numel() * 4, 0)
+    log(f"field_addsub Fr [8, {N8}] add: {ms:.4f} ms, bound "
+        f"{b_['bound_ms']:.4f} ms by {b_['bound_by']} "
+        f"({b_['bound_ms'] / ms:.2f} of it), an empty launch of its grid "
+        f"{empty_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    rec["field_addsub"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               shape=f"Fr [8, {N8}]", empty_launch_ms=empty_ms,
+                               **{k.replace(" ", "_").replace("[", "")
+                                  .replace("]", "").replace(",", "")
+                                  + "_ms": v for k, v in times.items()},
+                               **b_)
 
 
 def pow_products(e: int) -> int:
@@ -887,7 +1012,8 @@ def phase_slice(rng, dev) -> dict:
     log("commit: 4 + 1 commitments equal the native host MSM over 2^16")
 
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
-                                "window_fold"), "commitment path")
+                                "window_fold", "field_addsub"),
+                     "commitment path")
     out["launches"] = launches
     out["commit_key"] = ck
     out["opening_key"] = pp.opening_key
@@ -1475,10 +1601,141 @@ def phase_times(rng, dev) -> None:
         f"(host clock, synchronised)")
     a = lf.u32_to_tensor(rand_field(FR, (8, N), rng), dev)
     b = lf.u32_to_tensor(rand_field(FR, (8, N), rng), dev)
-    log(f"time int64 glue at [8, 2^16]: lf.add "
+    log(f"time at [8, 2^16]: lf.add (field_addsub kernel) "
         f"{cuda_ms(lambda: lf.add(FR, a, b), 20):.4f} ms, lf.sub "
-        f"{cuda_ms(lambda: lf.sub(FR, a, b), 20):.4f} ms, mont_mul kernel "
+        f"{cuda_ms(lambda: lf.sub(FR, a, b), 20):.4f} ms, the int64 chain "
+        f"they replace "
+        f"{cuda_ms(lambda: kernels.field_addsub_plain(FR, 'add', a, b), 20):.4f}"
+        f" ms, mont_mul kernel "
         f"{cuda_ms(lambda: lf.mont_mul(FR, a, b), 20):.4f} ms")
+
+def refuses_changed_input(verifier, proof, pis) -> bool:
+    """The verifier refuses the proof with its first public input + 1."""
+    try:
+        verifier.verify(proof, [pis[0] + Fr.one()] + pis[1:])
+    except PlonkError:
+        return True
+    return False
+
+
+def phase_prove_dryrun(dev) -> None:
+    """Gate 2 on the card: setup 2^11, compile and prove of the dryrun
+    circuit through the port's entry points; the proof bytes must equal the
+    committed fixture (read as a file), the public inputs its tail."""
+    t0 = time.perf_counter()
+    prover, verifier = dryrun.dryrun_prover(dev)
+    setup_compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, pis = dryrun.prove_dryrun(prover)
+    prove_s = time.perf_counter() - t0
+    fixture = dryrun.fixture_path(
+        str(Path(__file__).resolve().parent))
+    with open(fixture, "rb") as f:
+        buf = f.read()
+    plen = int.from_bytes(buf[:4], "little")
+    want_proof = buf[4:4 + plen]
+    tail = buf[4 + plen:]
+    n_pis = int.from_bytes(tail[:4], "little")
+    want_pis = [tail[4 + 32 * i: 36 + 32 * i] for i in range(n_pis)]
+    if proof.to_bytes() != want_proof:
+        raise AssertionError("the dryrun proof on the card differs from "
+                             "tests/fixtures/dryrun_proof_v1.bin")
+    if [p.to_bytes() for p in pis] != want_pis:
+        raise AssertionError("the dryrun public inputs differ from the "
+                             "fixture's tail")
+    verifier.verify(proof, pis)
+    if not refuses_changed_input(verifier, proof, pis):
+        raise AssertionError("the verifier accepted a changed public input")
+    log(f"dryrun prove (capacity 2^11, {prover.constraints} gates, domain "
+        f"{prover.size}): setup + compile {setup_compile_s:.3f} s, prove "
+        f"{prove_s:.3f} s; proof bytes ({len(want_proof)}) and {n_pis} "
+        f"public input equal the fixture; verified, a changed public input "
+        f"refused")
+
+
+def phase_prove_flagship(dev) -> dict:
+    """The flagship at full width: setup 2^17, compile the 2^16-gate
+    circuit, a first and three warm proves (byte-identical), verify, the
+    refusal of a changed public input; one warm prove is the counted
+    region `prove_path` and one more is profiled."""
+    out = {}
+    circuit = MultiOpeningCircuit.default_for(FLAGSHIP_HEIGHT,
+                                              FLAGSHIP_COUNT)
+    t0 = time.perf_counter()
+    pp = PublicParameters.setup(1 << FLAGSHIP_SETUP_LOG, StdRng(42), dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prover, verifier = Compiler.compile_with_circuit(pp, b"flagship",
+                                                     circuit)
+    torch.cuda.synchronize()
+    out["compile_s"] = time.perf_counter() - t0
+    log(f"flagship: {prover.constraints} gates, domain {prover.size} "
+        f"(8n = {8 * prover.size}); setup 2^{FLAGSHIP_SETUP_LOG} "
+        f"{out['setup_s']:.3f} s, compile {out['compile_s']:.3f} s")
+    if prover.size != N:
+        raise AssertionError(f"the flagship domain is {prover.size}, not "
+                             f"2^{LOG_N}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof, pis = prover.prove(StdRng(7), circuit)
+    torch.cuda.synchronize()
+    out["prove_first_s"] = time.perf_counter() - t0
+
+    metrics.GLOBAL.reset()
+    walls = []
+    blobs = []
+    for i in range(FLAGSHIP_WARM_PROVES):
+        if i == 0:
+            kernels.reset_launches()
+        # ---- main path (i = 0): one warm flagship prove ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof, pis = prover.prove(StdRng(7), circuit)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.LAUNCHES)
+        # ---- end of main path ----
+        blobs.append(proof.to_bytes())
+    spans = metrics.report()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if len(set(blobs)) != 1:
+        raise AssertionError("the warm flagship proofs differ")
+    out["prove_warm_s"] = sum(walls) / len(walls)
+    log(f"flagship prove: first {out['prove_first_s']:.3f} s, warm "
+        + ", ".join(f"{w:.3f}" for w in walls)
+        + f" s (mean {out['prove_warm_s']:.3f} s), the "
+        f"{FLAGSHIP_WARM_PROVES} warm proofs byte-identical; peak device "
+        f"memory {out['peak_gib']:.3f} GiB")
+    log("flagship spans, averaged over the warm proves: "
+        + "; ".join(f"{k} {v['total_s'] / v['count']:.4f} s"
+                    for k, v in spans.items()))
+    log(f"launches of one warm flagship prove: {launches}")
+
+    t0 = time.perf_counter()
+    verifier.verify(proof, pis)
+    out["verify_ms"] = (time.perf_counter() - t0) * 1e3
+    if not refuses_changed_input(verifier, proof, pis):
+        raise AssertionError("the flagship verifier accepted a changed "
+                             "public input")
+    log(f"flagship verify: {out['verify_ms']:.1f} ms ({len(pis)} public "
+        f"inputs); a changed public input refused")
+
+    rows = profiled("one warm flagship prove",
+                    lambda: prover.prove(StdRng(7), circuit), top=14)
+    busy = sum(us for _, us, _ in rows) / 1e3
+    ours = sum(us for key, us, _ in rows
+               if any(k in key for k in OUR_KERNELS)) / 1e3
+    out["busy_share"] = busy / (out["prove_warm_s"] * 1e3)
+    log(f"  of its device time, the port's kernels {ours:.3f} ms; busy "
+        f"share of a warm prove {out['busy_share']:.4f} (device busy "
+        f"{busy:.3f} ms over the mean warm wall without the profiler)")
+    require_launched(launches, ("mont_mul", "padd", "window_fold",
+                                "carry_fold", "field_addsub"),
+                     "flagship prove")
+    out["launches"] = launches
+    return out
 
 
 def device_rows(prof) -> list[tuple[str, float, int]]:
@@ -1494,9 +1751,12 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profiled(label: str, fn, top: int = 10) -> list[tuple[str, float, int]]:
-    """One warm call of fn() under torch.profiler: wall time, device busy
-    time and idle share, and the largest device items by name."""
+def profiled(label: str, fn, top: int = 10,
+             reps: int = 1) -> list[tuple[str, float, int]]:
+    """`reps` warm calls of fn() under torch.profiler: wall time, device
+    busy time and idle share, and the largest device items by name (a
+    window of one short launch can come back empty, so the checks of what
+    runs beside one kernel take a few)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1504,7 +1764,8 @@ def profiled(label: str, fn, top: int = 10) -> list[tuple[str, float, int]]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
@@ -1623,14 +1884,16 @@ def main() -> int:
     phase_times(rng, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
+    phase_prove_dryrun(dev)
+    fl = phase_prove_flagship(dev)
 
     # launches: the sum of the counted regions, each also given apart; no
-    # single PyTorch call computes any of the nine functions (a Montgomery
-    # product or power on limbs, a curve addition, a permutation over Fr),
-    # so there is no library time
+    # single PyTorch call computes any of the ten functions (a Montgomery
+    # product or power on limbs, a curve addition, a permutation over Fr, a
+    # modular addition on limbs), so there is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
-                                 pc["launches"])))
+                                 pc["launches"], fl["launches"])))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

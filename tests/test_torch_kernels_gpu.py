@@ -344,3 +344,79 @@ def test_transform_routes_agree_on_card(cuda):
     t = ntt_mxu.MXUTransform(n, dom.group_gen)
     assert torch.equal(ntt_mxu.transform_unfused(t, x.to(cuda)).cpu(), want)
     assert torch.equal(dom.ifft_device(got).cpu(), x)
+
+
+_ADDSUB_VIEWS = {
+    "contiguous": lambda b: b[:, :, :1027].contiguous(),
+    "constant_column": lambda b: b[0, :, :1],
+    "shared_table": lambda b: b[1, :, :1027],
+    "lane_broadcast": lambda b: b[:, :, 7:8],
+    "every_second_lane": lambda b: b[:, :, 1::2],
+    "limbs_innermost": lambda b: b[:, :, :1027].transpose(1, 2).contiguous()
+    .transpose(1, 2),
+}
+
+
+@pytest.mark.parametrize("spec", [lf.FR, lf.FQ], ids=["Fr", "Fq"])
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+@pytest.mark.parametrize("kind", sorted(_ADDSUB_VIEWS))
+@pytest.mark.parametrize("masked", [False, True])
+def test_field_addsub_kernel_matches_plain(cuda, spec, op, kind, masked):
+    """One launch, bit for bit against the plain version, for every layout
+    the kernel reads in place, at the edge values 0, 1, p - 1, R mod p."""
+    a = _field(spec, (3, spec.n_limbs, 1027), 40)
+    b = _field(spec, (3, spec.n_limbs, 2054), 41)
+    edges = [0, 1, spec.modulus - 1, spec.R]
+    for j, v in enumerate(edges):
+        col = torch.from_numpy(lf.int_to_limbs(v, spec.n_limbs)
+                               .view(np.int32))
+        a[0, :, j] = col
+        b[0, :, len(edges) - 1 - j] = col
+    mask = (torch.from_numpy(np.random.default_rng(42).integers(
+        0, 2, (3, 1027)) == 1) if masked else None)
+    view = _ADDSUB_VIEWS[kind]
+    x = view(b) if op != "neg" else None
+    want = kernels.field_addsub_plain(spec, op, a, x, mask)
+    before = kernels.LAUNCHES["field_addsub"]
+    got = kernels.field_addsub(
+        spec, op, a.to(cuda), None if x is None else view(b.to(cuda)),
+        None if mask is None else mask.to(cuda))
+    assert kernels.LAUNCHES["field_addsub"] == before + 1
+    assert got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+def test_lf_add_sub_neg_launch_the_kernel_on_card(cuda):
+    a = _field(lf.FR, (8, 515), 43).to(cuda)
+    b = _field(lf.FR, (8, 515), 44).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    lf.add(lf.FR, a, b), lf.sub(lf.FR, a, b), lf.neg(lf.FR, a)
+    assert kernels.LAUNCHES["field_addsub"] == before["field_addsub"] + 3
+    with pytest.raises(ValueError):
+        kernels.field_addsub(lf.FR, "add", a, b.cpu())
+
+
+def test_gate1_prove_on_card_equals_cpu(cuda):
+    """The fixture prover proves the fixture circuit on the card to the CPU
+    proof's bytes (which tests/test_torch_prover.py holds against zkvm_tpu)."""
+    from pathlib import Path
+
+    from zkvm_tpu_torch.plonk import Constraint, Prover
+    from zkvm_tpu_torch.plonk.composer import Circuit
+
+    class FixedCircuit(Circuit):
+        def circuit(self, c):
+            a = c.append_witness(Fr(3))
+            b = c.append_witness(Fr(5))
+            o = c.gate_add(Constraint().left(1).right(1).a(a).b(b))
+            c.assert_equal_constant(o, Fr(8), None)
+            x = c.gate_mul(Constraint().mult(1).a(a).b(b))
+            c.assert_equal_constant(x, Fr(15), None)
+            c.component_boolean(c.append_witness(Fr(1)))
+
+    pb = (Path(__file__).parent / "fixtures" /
+          "prover_bundle_v1.bin").read_bytes()
+    on_card, _ = Prover.try_from_bytes(pb, cuda).prove(StdRng(5),
+                                                       FixedCircuit())
+    on_cpu, _ = Prover.try_from_bytes(pb, "cpu").prove(StdRng(5),
+                                                       FixedCircuit())
+    assert on_card.to_bytes() == on_cpu.to_bytes()

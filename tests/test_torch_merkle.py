@@ -146,9 +146,23 @@ def test_item_bytes():
 
 
 def test_merkle_module_leaves_the_composer_out():
-    """`opening_gadget` waits for the composer; the module must import
-    without it."""
+    """`opening_gadget` is the module's, as it is the reference's, and
+    builds the reference's constraints for the same opening (the compressed
+    circuits of `tests/test_torch_plonk_host.py` hold the witnesses too)."""
     import zkvm_tpu_torch.merkle.poseidon_tree as ptree
+    from zkvm_tpu.plonk import Composer as RComposer
+    from zkvm_tpu_torch.plonk import Composer
 
-    assert not hasattr(ptree, "opening_gadget")
-    assert hasattr(rtree, "opening_gadget")
+    assert hasattr(ptree, "opening_gadget") and hasattr(rtree,
+                                                        "opening_gadget")
+    port, ref = PoseidonTree(1), rtree.PoseidonTree(1)
+    for i in range(3):
+        port.insert(i, Item(Fr(50 + i)))
+        ref.insert(i, RItem(RFr(50 + i)))
+    composer, rcomposer = Composer.initialized(), RComposer.initialized()
+    root = ptree.opening_gadget(composer, port.opening(1),
+                                composer.append_witness(Fr(51)))
+    rroot = rtree.opening_gadget(rcomposer, ref.opening(1),
+                                 rcomposer.append_witness(RFr(51)))
+    assert len(composer.constraints) == len(rcomposer.constraints)
+    assert composer[root].value == rcomposer[rroot].value

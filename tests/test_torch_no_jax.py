@@ -3,14 +3,17 @@ device fallback.
 
 The port imports nothing of `jax` and nothing of `zkvm_tpu` (it keeps its
 own copy of the host layer); a subprocess with both blocked runs a tiny
-setup and commit and a tree build of height 1, and must print the
-reference's commitment bytes and root bytes.
+setup and commit, a tree build of height 1 and the gate-1 prove of the
+fixture circuit from the committed prover bundle, and must print the
+reference's commitment bytes, root bytes and proof bytes.
 """
 
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import pytest
 import torch
@@ -19,6 +22,7 @@ from zkvm_tpu.fields import Fr
 from zkvm_tpu.merkle import PoseidonTree as RPoseidonTree
 from zkvm_tpu.plonk import kzg10 as rkzg
 from zkvm_tpu.plonk.polynomial import Polynomial
+from zkvm_tpu.plonk.prover import Prover as RProver
 from zkvm_tpu.rng import StdRng
 from zkvm_tpu_torch.fields import Fr as PFr
 from zkvm_tpu_torch.merkle import PoseidonTree
@@ -49,10 +53,29 @@ from zkvm_tpu_torch.merkle import Item, PoseidonTree
 leaves = [Fr(7 * i + 3) for i in range(4)]
 tree = PoseidonTree.from_leaves(1, leaves, "cpu")
 assert tree.opening(2).verify(Item(leaves[2]))
+from zkvm_tpu_torch.plonk import Constraint, Prover
+from zkvm_tpu_torch.plonk.composer import Circuit
+
+
+class FixedCircuit(Circuit):
+    def circuit(self, c):
+        a = c.append_witness(Fr(3))
+        b = c.append_witness(Fr(5))
+        o = c.gate_add(Constraint().left(1).right(1).a(a).b(b))
+        c.assert_equal_constant(o, Fr(8), None)
+        x = c.gate_mul(Constraint().mult(1).a(a).b(b))
+        c.assert_equal_constant(x, Fr(15), None)
+        c.component_boolean(c.append_witness(Fr(1)))
+
+
+with open("tests/fixtures/prover_bundle_v1.bin", "rb") as f:
+    prover = Prover.try_from_bytes(f.read(), "cpu")
+proof, _ = prover.prove(StdRng(5), FixedCircuit())
 assert not any(m.split(".")[0] in ("jax", "zkvm_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print(c.to_bytes().hex())
 print(tree.root().to_bytes().hex())
+print(proof.to_bytes().hex())
 """
 
 
@@ -65,8 +88,13 @@ def test_slice_runs_with_jax_blocked():
         Polynomial([Fr(i + 1) for i in range(5)]))
     root = RPoseidonTree.from_leaves(
         1, [Fr(7 * i + 3) for i in range(4)]).root()
+    from test_fixtures import FixedCircuit
+
+    pb = (ROOT / "tests" / "fixtures" / "prover_bundle_v1.bin").read_bytes()
+    proof, _ = RProver.try_from_bytes(pb).prove(StdRng(5), FixedCircuit())
     assert out.stdout.split() == [ref.to_bytes().hex(),
-                                  root.to_bytes().hex()]
+                                  root.to_bytes().hex(),
+                                  proof.to_bytes().hex()]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -85,6 +113,14 @@ def test_cuda_request_without_cuda_raises():
         kzg10.PublicParameters.setup(2, PStdRng(1), "cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         PoseidonTree.from_leaves(1, [PFr(i) for i in range(4)], "cuda")
+    from test_torch_plonk_host import FixedCircuit
+    from zkvm_tpu_torch.plonk import Prover
+
+    pb = (ROOT / "tests" / "fixtures" / "prover_bundle_v1.bin").read_bytes()
+    prover = Prover.try_from_bytes(pb, "cuda")
+    assert prover.device == torch.device("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        prover.prove(PStdRng(5), FixedCircuit())
 
 
 def test_kernel_wrappers_refuse_other_devices_and_layouts():

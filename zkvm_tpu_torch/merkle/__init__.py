@@ -2,8 +2,8 @@
 
 from .tree import Aggregate, Opening, Tree, UnitAggregate
 from .poseidon_tree import (ARITY, Item, PoseidonOpening, PoseidonTree,
-                            poseidon_opening_from_slice)
+                            opening_gadget, poseidon_opening_from_slice)
 
 __all__ = ["Aggregate", "ARITY", "Item", "Opening", "PoseidonOpening",
-           "PoseidonTree", "Tree", "UnitAggregate",
+           "PoseidonTree", "Tree", "UnitAggregate", "opening_gadget",
            "poseidon_opening_from_slice"]

@@ -1,18 +1,20 @@
 """Poseidon-specialized arity-4 Merkle tree (poseidon-merkle crate parity).
 
-Item/Tree/Opening semantics from poseidon-merkle/src/lib.rs:19-181.
+Item/Tree/Opening semantics from poseidon-merkle/src/lib.rs:19-181; the
+in-circuit opening verification from poseidon-merkle/src/zk.rs:16-102.
 
 `PoseidonTree.from_leaves` builds a dense tree with the batched device
 Poseidon (one Hades permutation per node, level-wise over the whole tree:
-`ops/poseidon.py` `merkle_tree_levels`, kernel `csrc/hades.cu`).  The
-in-circuit opening verification (`opening_gadget`) needs the composer and
-is not part of this module yet.
+`ops/poseidon.py` `merkle_tree_levels`, kernel `csrc/hades.cu`).
 """
 
 from __future__ import annotations
 
 from ..fields import Fr
+from ..hashes.gadget import HashGadget
 from ..hashes.poseidon import Domain, Hash
+from ..plonk.composer import Composer
+from ..plonk.constraint_system import Constraint, Witness
 from .tree import Aggregate, Opening, Tree, UnitAggregate
 
 ARITY = 4
@@ -135,3 +137,39 @@ def poseidon_opening_from_slice(buf: bytes, height: int) -> Opening:
     return Opening.from_slice(buf, _ItemAggregate(), height, ARITY,
                               Item.SIZE, Item.from_bytes)
 
+
+def opening_gadget(composer: Composer, opening: Opening,
+                   leaf: Witness) -> Witness:
+    """In-circuit opening verification (poseidon-merkle/src/zk.rs:16-102)."""
+    height = opening.height
+    level_witnesses = [[Composer.ZERO] * ARITY for _ in range(height)]
+    position_bits = [[Composer.ZERO] * ARITY for _ in range(height)]
+    for level_index in range(height - 1, -1, -1):
+        level = opening.branch[level_index]
+        for item_index, item in enumerate(level):
+            bit = (Fr.one() if item_index == opening.positions[level_index]
+                   else Fr.zero())
+            position_bits[level_index][item_index] = (
+                composer.append_witness(bit))
+            level_witnesses[level_index][item_index] = (
+                composer.append_witness(item.hash))
+            composer.component_boolean(position_bits[level_index][item_index])
+        bits = position_bits[level_index]
+        s = composer.gate_add(Constraint().left(1).a(bits[0])
+                              .right(1).b(bits[1]).fourth(1).d(bits[2]))
+        s = composer.gate_add(Constraint().left(1).a(s).right(1).b(bits[3]))
+        composer.assert_equal_constant(s, Fr.one(), None)
+
+    current = leaf
+    for level_index in range(height - 1, -1, -1):
+        for item_index in range(ARITY):
+            bit = position_bits[level_index][item_index]
+            level_hash = composer.gate_mul(
+                Constraint().mult(1).a(bit)
+                .b(level_witnesses[level_index][item_index]))
+            current_hash = composer.gate_mul(
+                Constraint().mult(1).a(bit).b(current))
+            composer.assert_equal(level_hash, current_hash)
+        current = HashGadget.digest(composer, Domain.Merkle4,
+                                    level_witnesses[level_index])[0]
+    return current

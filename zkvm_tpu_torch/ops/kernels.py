@@ -1,6 +1,6 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Nine kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Ten kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas` (reads broadcast
                    and strided operands in place)
@@ -18,6 +18,10 @@ Nine kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
                    threads a lane for a launch too small to fill the card;
                    `csrc/hades.cu` picks by the lane count)
   * `padd_ilp`     replaces `pallas_field.padd_pallas_ilp` / `_ilp2l`
+  * `field_addsub` replaces the field additions, subtractions and negations
+                   that `jit` fuses into every program holding them
+                   (`limb_field.add` / `sub` / `neg`), with an optional
+                   lane mask (reads broadcast and strided operands in place)
 
 They are compiled with `nvcc` (one process per source, all started
 together) and linked into one shared library with a plain C interface on
@@ -60,14 +64,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
-            "ntt_fold.cu", "hades.cu", "padd_ilp.cu")
+            "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu")
 _HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
             "butterfly": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
-            "padd_ilp": 0}
+            "padd_ilp": 0, "field_addsub": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -142,10 +146,11 @@ def build() -> float:
     lib.zk_fold.argtypes = [_P, _P, _LL, _P]
     lib.zk_hades_permute.argtypes = [_P, _P, _P, _LL, _P]
     lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P]
+    lib.zk_field_addsub.argtypes = [_I, _I, _P, _P, _P, _P, _LL, _LL, _P, _P]
     for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
                lib.zk_padd, lib.zk_window_fold, lib.zk_butterfly,
                lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
-               lib.zk_padd_ilp, lib.zk_fq_chain):
+               lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -294,6 +299,105 @@ def mont_mul(spec: lf.FieldSpec, a: torch.Tensor,
         _launch("mont_mul", _lib.zk_mont_mul, _FIELD_ID[spec.name],
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), groups, lanes,
                 strides, _stream(dev))
+    return out
+
+
+# -----------------------------------------------------------------------------
+# field_addsub
+# -----------------------------------------------------------------------------
+
+FIELD_OPS = {"add": 0, "sub": 1, "neg": 2}
+
+
+def field_addsub_shape(op: str, a: torch.Tensor, b, mask) -> tuple:
+    """The [..., L, B] shape of a field_addsub result: a and b (and the mask
+    as [..., 1, B]) broadcast to it."""
+    shape = tuple(a.shape) if op == "neg" else mont_mul_shape(a, b)
+    if mask is not None:
+        shape = tuple(torch.broadcast_shapes(shape, mask.unsqueeze(-2).shape))
+    return shape
+
+
+def mask_layout(mask: torch.Tensor, shape):
+    """(group, lane) strides in bytes if the kernel can read the [..., B]
+    bool `mask`, broadcast over the limbs of the [..., L, B] `shape`, in
+    place, else None."""
+    if mask.dtype != torch.bool or mask.dim() < 1:
+        return None
+    try:
+        view = mask.unsqueeze(-2).expand(shape)
+    except RuntimeError:
+        return None
+    layout = _strided_layout(shape, view.stride())
+    return None if layout is None else (layout[0], layout[2])
+
+
+def field_addsub_plain(spec: lf.FieldSpec, op: str, a: torch.Tensor,
+                       b=None, mask=None) -> torch.Tensor:
+    """Plain version of the field_addsub kernel: the 16-bit wide add16 /
+    sub16 of `limb_field`, then the mask's select."""
+    wa = lf.split16(a)
+    if op == "add":
+        r = lf.add16(spec, wa, lf.split16(b))
+    elif op == "sub":
+        r = lf.sub16(spec, wa, lf.split16(b))
+    else:
+        r = lf.sub16(spec, torch.zeros_like(wa), wa)
+    if mask is not None:
+        r = torch.where(mask.unsqueeze(-2), r, wa)
+    shape = field_addsub_shape(op, a, b, mask)
+    return lf.join16(r.expand(shape[:-2] + (2 * shape[-2],) + shape[-1:]))
+
+
+def field_addsub(spec: lf.FieldSpec, op: str, a: torch.Tensor, b=None,
+                 mask=None) -> torch.Tensor:
+    """(a + b) mod p, (a - b) mod p or (-a) mod p (`op` "add", "sub", "neg";
+    b is None for "neg") elementwise over int32 limb tensors that broadcast
+    to one [..., L, B] shape; with a [..., B] bool `mask`, that value where
+    the mask is set and `a` where it is clear.  Each operand and the mask
+    are read in place through their strides (see `mont_mul_layout`); what
+    cannot be raises.  The result is contiguous."""
+    if op not in FIELD_OPS or (b is None) != (op == "neg"):
+        raise ValueError(f"field_addsub: op {op!r} with "
+                         f"{'no' if b is None else 'a'} second operand")
+    dev = _mont_operands("field_addsub", spec, (a,) if b is None else (a, b))
+    shape = field_addsub_shape(op, a, b, mask)
+    layouts = [mont_mul_layout(t, shape) for t in ((a,) if b is None
+                                                   else (a, b))]
+    for t, layout in zip((a, b), layouts):
+        if layout is None:
+            raise ValueError(
+                f"field_addsub: an operand of shape {tuple(t.shape)} and "
+                f"strides {t.stride()} cannot be read in place as {shape}: "
+                f"its leading axes must collapse into one")
+    mask_strides = (0, 0)
+    if mask is not None:
+        if mask.device != dev:
+            raise ValueError(f"field_addsub: mask on {mask.device}, "
+                             f"operands on {dev}")
+        mask_strides = mask_layout(mask, shape)
+        if mask_strides is None:
+            raise ValueError(f"field_addsub: a mask of shape "
+                             f"{tuple(mask.shape)}, strides {mask.stride()} "
+                             f"and dtype {mask.dtype} cannot be read in "
+                             f"place over {shape}")
+    if dev.type == "cpu":
+        return field_addsub_plain(spec, op, a, b, mask)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    build()
+    lanes = shape[-1]
+    groups = out.numel() // (spec.n_limbs * lanes)
+    if b is None:
+        b, layouts = a, layouts * 2
+    strides = (ctypes.c_longlong * 8)(*layouts[0], *layouts[1],
+                                      *mask_strides)
+    with torch.cuda.device(dev):
+        _launch("field_addsub", _lib.zk_field_addsub, _FIELD_ID[spec.name],
+                FIELD_OPS[op], a.data_ptr(), b.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                groups, lanes, strides, _stream(dev))
     return out
 
 

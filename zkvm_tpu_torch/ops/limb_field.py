@@ -13,11 +13,12 @@ them as `uint32_t`).  torch's CPU `uint32` lacks `+`, `>>` and `>`, so the
 plain arithmetic below widens to int64 with 16-bit limbs ("16-bit wide"
 form, `[..., 2L, B]`): limb products stay below 2^32 and lazy column sums
 far below 2^63.  These plain functions run on any device; the Montgomery
-multiply and the power dispatch to the CUDA kernels for a CUDA tensor
-(`kernels.mont_mul`, `kernels.mont_pow`) and to `mont_mul16` only for a CPU
-tensor.  The multiply reads broadcast and strided operands in place: a
-caller hands over an `[L, 1]` column or an expanded view and nothing of the
-full shape is made for it.
+multiply, the power, and the addition, subtraction and negation dispatch to
+the CUDA kernels for a CUDA tensor (`kernels.mont_mul`, `kernels.mont_pow`,
+`kernels.field_addsub`) and to `mont_mul16` / `add16` / `sub16` only for a
+CPU tensor.  They read broadcast and strided operands in place: a caller
+hands over an `[L, 1]` column or an expanded view and nothing of the full
+shape is made for it.
 """
 
 from __future__ import annotations
@@ -314,20 +315,36 @@ def mont_mul16(spec: FieldSpec, a: torch.Tensor,
 # Public functions on int32 [..., L, B] tensors
 # =============================================================================
 
+def _field_op(spec: FieldSpec, op: str, a: torch.Tensor, b, mask):
+    """One launch of the field_addsub kernel (its plain version for a CPU
+    tensor).  Each operand and the mask are handed over as they are where
+    the kernel can read them in place, and copied only where it cannot."""
+    from . import kernels  # kernels imports this module
+
+    shape = kernels.field_addsub_shape(op, a, b, mask)
+    a, b = (t if t is None or kernels.mont_mul_layout(t, shape) is not None
+            else t.expand(shape).contiguous() for t in (a, b))
+    if (mask is not None and mask.dtype == torch.bool
+            and kernels.mask_layout(mask, shape) is None):
+        mask = mask.expand(shape[:-2] + shape[-1:]).contiguous()
+    return kernels.field_addsub(spec, op, a, b, mask)
+
+
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p, both in the same (Montgomery or raw) domain."""
-    return join16(add16(spec, split16(a), split16(b)))
+    return _field_op(spec, "add", a, b, None)
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p."""
-    return join16(sub16(spec, split16(a), split16(b)))
+    return _field_op(spec, "sub", a, b, None)
 
 
-def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """(-a) mod p, with -0 = 0."""
-    w = split16(a)
-    return join16(sub16(spec, torch.zeros_like(w), w))
+def neg(spec: FieldSpec, a: torch.Tensor,
+        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(-a) mod p, with -0 = 0; with a [..., B] bool mask, -a where it is
+    set and a where it is clear (`select(mask, -a, a)` in one pass)."""
+    return _field_op(spec, "neg", a, None, mask)
 
 
 def is_zero(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -211,7 +211,7 @@ def _sorted_points(c: int, pm, pinf, limbs):
     g = pm.index_select(0, perm.reshape(-1))             # [B*N, 36]
     g = g.reshape(b, n, 3 * l).transpose(1, 2)           # [B, 36, N]
     x, y, z = g[:, :l], g[:, l:2 * l], g[:, 2 * l:]
-    y = lf.select(neg, lf.neg(FQ, y), y)
+    y = lf.neg(FQ, y, mask=neg)
     return (sid, *_park_identity(sid >= sent, (x, y, z)))
 
 

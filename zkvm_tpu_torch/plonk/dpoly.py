@@ -78,28 +78,38 @@ def eval_stack(stack: torch.Tensor, z: Fr) -> list[Fr]:
     return from_device(out[..., 0].T)
 
 
-def _suffix_sums(t: torch.Tensor) -> torch.Tensor:
-    """Inclusive suffix sums mod r over the last axis of [8, m]."""
-    return _prefix_sums(t.flip(-1)).flip(-1)
-
-
-def _prefix_sums(t: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sums mod r over the last axis.  Log depth: add
-    adjacent pairs, scan the half-length array (the odd lanes), then one
-    addition fixes the even lanes -- about 2m additions in 2 log2(m)
-    steps.  Sums mod r are canonical, so the order of additions does not
-    show in the result."""
+def _scan(t: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of the field operation `op` over the last axis of
+    [8, m].  Log depth: combine adjacent pairs, scan the half-length array
+    (the odd lanes), then one more `op` fixes the even lanes -- about 2m
+    operations in 2 log2(m) steps.  Sums and products mod r are exact, so
+    the grouping does not show in the result."""
     m = t.shape[-1]
     if m <= 1:
         return t
-    odd = _prefix_sums(lf.add(FR, t[..., 0:m - 1:2], t[..., 1::2]))
+    odd = _scan(op(t[..., 0:m - 1:2], t[..., 1::2]), op)
     out = torch.empty_like(t)
     out[..., 0:1] = t[..., 0:1]
     out[..., 1::2] = odd
     k = (m - 1) // 2  # even lanes after lane 0
     if k:
-        out[..., 2::2] = lf.add(FR, odd[..., :k], t[..., 2::2])
+        out[..., 2::2] = op(odd[..., :k], t[..., 2::2])
     return out
+
+
+def _suffix_sums(t: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sums mod r over the last axis of [8, m]."""
+    return _scan(t.flip(-1), lambda a, b: lf.add(FR, a, b)).flip(-1)
+
+
+def prefix_products(t: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix (suffix when `reverse`) Montgomery products over the
+    last axis of [8, m] (the counterpart of the reference's
+    `jax.lax.associative_scan(mul, ...)`)."""
+    mul = lambda a, b: lf.mont_mul(FR, a, b)  # noqa: E731
+    if reverse:
+        return _scan(t.flip(-1), mul).flip(-1)
+    return _scan(t, mul)
 
 
 def _ruffini_impl(coeffs: torch.Tensor, pw: torch.Tensor,

@@ -22,10 +22,17 @@ from ..fields import Fr
 
 from ..ops import g1_ops
 from ..ops.msm import MSMContext
-from .errors import (DegreeIsZero, PairingCheckFailure,
-                     PolynomialDegreeIsZero, PolynomialDegreeTooLarge,
-                     TruncatedDegreeIsZero, TruncatedDegreeTooLarge)
+from .errors import (DegreeIsZero, NotEnoughBytes, PairingCheckFailure,
+                     PlonkError, PointMalformed, PolynomialDegreeIsZero,
+                     PolynomialDegreeTooLarge, TruncatedDegreeIsZero,
+                     TruncatedDegreeTooLarge)
 from .polynomial import Polynomial
+
+
+class KZGError(PlonkError, ValueError):
+    """Legacy catch-all; specific sites raise the typed error.rs variants
+    (which subclass PlonkError, so `except KZGError` no longer catches them
+    -- use PlonkError)."""
 
 
 def powers_of(x: Fr, degree: int) -> list[Fr]:
@@ -200,6 +207,22 @@ class CommitKey:
         return numerator.ruffini(point)
 
     # -- serialization (key.rs:38-82) -----------------------------------------
+    def to_var_bytes(self) -> bytes:
+        return b"".join(g.to_bytes() for g in self.powers_of_g)
+
+    @classmethod
+    def from_slice(cls, buf: bytes, device) -> "CommitKey":
+        n = G1Affine.SIZE
+        if len(buf) % n:
+            raise KZGError("bad CommitKey length")
+        out = []
+        for i in range(0, len(buf), n):
+            g = G1Affine.from_bytes(buf[i: i + n])
+            if g is None:
+                raise PointMalformed()
+            out.append(g)
+        return cls(out, device)
+
     def to_raw_var_bytes(self) -> bytes:
         head = len(self.powers_of_g).to_bytes(8, "little")
         return head + b"".join(g.to_raw_bytes() for g in self.powers_of_g)
@@ -330,6 +353,26 @@ class PublicParameters:
     def max_degree(self) -> int:
         return self.commit_key.max_degree()
 
+    # -- serialization (srs.rs:73-114) -----------------------------------------
+    def to_var_bytes(self) -> bytes:
+        return self.opening_key.to_bytes() + self.commit_key.to_var_bytes()
+
+    @classmethod
+    def from_slice(cls, buf: bytes, device) -> "PublicParameters":
+        if len(buf) <= OpeningKey.SIZE:
+            raise NotEnoughBytes()
+        ok = OpeningKey.from_bytes(buf[: OpeningKey.SIZE])
+        if ok is None:
+            raise PointMalformed()
+        ck = CommitKey.from_slice(buf[OpeningKey.SIZE:], device)
+        return cls(ck, ok)
+
     def to_raw_var_bytes(self) -> bytes:
         return (self.opening_key.to_bytes()
                 + self.commit_key.to_raw_var_bytes())
+
+    @classmethod
+    def from_slice_unchecked(cls, buf: bytes, device) -> "PublicParameters":
+        ok = OpeningKey.from_bytes(buf[: OpeningKey.SIZE])
+        ck = CommitKey.from_slice_unchecked(buf[OpeningKey.SIZE:], device)
+        return cls(ck, ok)
