@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's PLONK prover (setup -> compile -> prove -> verify), its
-KZG commitment path, the polynomial path of a prover round and the
-Poseidon/Merkle path once on one NVIDIA GPU.
+batch Merkle-membership service, its KZG commitment path, the polynomial
+path of a prover round and the Poseidon/Merkle path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -64,20 +64,37 @@ Phases (any failure exits non-zero; no phase catches its own error):
      tests/fixtures/dryrun_proof_v1.bin (read as a file) and the public
      inputs its tail; the port's Verifier accepts the proof and refuses it
      with a public input changed;
- 10. the flagship prove at full width: MultiOpeningCircuit.default_for(3,
-     21) (2^16 gates), setup 2^17 under StdRng(42), compile with the label
-     b"flagship", a first prove and three warm proves under StdRng(7) (the
-     three proofs byte-identical), verify and the refusal of a changed
-     public input; it prints setup, compile, first and warm prove times,
+ 10. the flagship prove at full width through benches.run_flagship (what
+     tools/bench_flagship.py times): MultiOpeningCircuit.default_for(3, 21)
+     (2^16 gates), setup 2^17 under StdRng(42) after an untimed setup of
+     2^8, compile with the label b"flagship", a first prove and three warm
+     proves under StdRng(7) (the three proofs byte-identical), verify and
+     the refusal of a changed public input; it prints setup, compile, first and warm prove times,
      the per-round spans averaged over the warm proves, verify ms, peak
      device memory, the device's busy share of one warm prove
      (torch.profiler), the gates and the domain size;
- 11. every kernel's launch count must be above zero in some region.  The
+ 11. the batch service at full width, through its CLI
+     (zkvm_tpu_torch.service.cli): make-input of 32 leaves of a height-17
+     tree, two bad leaves appended (a leaf that is not the opened one, an
+     opening of another tree), then `batch --capacity 15 --height 17
+     --device cuda` twice into fresh directories -- the first sets up
+     2^15, compiles the 17,158-gate circuit and writes the cache, the
+     second loads the cache; each proves exactly the 32 good leaves, and
+     the second run's 64 proof and public-input files equal the first
+     run's byte for byte; `verify` returns 0 on every proof and 1 on one
+     with a changed public-input byte.  It prints setup, compile, the
+     cache's bytes and its write and load times, the first leaf's prove,
+     the mean warm prove, leaves/s, verify ms and peak device memory, each
+     beside the card's name and power limit;
+ 12. the device rows of the benches (utils/benches.py: poseidon, ntt, msm,
+     prove) once on the card, each value finite and positive, the poseidon
+     row launching hades_permute;
+ 13. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
      whole-transform cross-checks (the only callers of butterfly and fold),
-     the Merkle path, the padd comparison and one warm flagship prove,
-     reported apart.
+     the Merkle path, the padd comparison, one warm flagship prove and the
+     first service run (compile and 32 proves), reported apart.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -89,8 +106,12 @@ import sys
 sys.modules["jax"] = None  # any import of jax now fails
 sys.modules["zkvm_tpu"] = None  # and any import of the JAX package
 
+import contextlib  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -109,13 +130,14 @@ from zkvm_tpu_torch.ops import (g1_ops, kernels, ntt, ntt_mxu,  # noqa: E402
                                 poseidon)
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk import (Compiler, PlonkError, dpoly,  # noqa: E402
-                                  kzg10)
+from zkvm_tpu_torch.plonk import PlonkError, dpoly, kzg10  # noqa: E402
 from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
                                         PublicParameters, powers_of)
 from zkvm_tpu_torch.rng import StdRng  # noqa: E402
-from zkvm_tpu_torch.service.batch import MultiOpeningCircuit  # noqa: E402
-from zkvm_tpu_torch.utils import dryrun, metrics  # noqa: E402
+from zkvm_tpu_torch.service import cli as service_cli  # noqa: E402
+from zkvm_tpu_torch.service.formats import (LeafInfo,  # noqa: E402
+                                            MultipleLeavesData)
+from zkvm_tpu_torch.utils import benches, dryrun, metrics  # noqa: E402
 
 SEED = 2026
 LOG_N = 16
@@ -125,10 +147,15 @@ Q = FR.modulus
 MERKLE_HEIGHT = 10        # PoseidonTree.from_leaves: 4^10 leaves
 LEVELS_HEIGHT = 12        # merkle_tree_levels alone: 4^12 leaves
 HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
-# the flagship circuit (tools/bench_flagship.py): 21 openings of a height-3
+# the flagship circuit (benches.run_flagship): 21 openings of a height-3
 # tree in one circuit, 2^16 gates, on an SRS of 2^17
-FLAGSHIP_HEIGHT, FLAGSHIP_COUNT, FLAGSHIP_SETUP_LOG = 3, 21, 17
+FLAGSHIP_COUNT, FLAGSHIP_SETUP_LOG = 21, 17
 FLAGSHIP_WARM_PROVES = 3
+# the batch service at its own tree height (DEFAULT_TREE_HEIGHT): the
+# height-17 opening circuit has 17,158 gates, a domain of 2^15, and needs an
+# SRS of 2^15 (the default capacity, 13, cannot hold it)
+SERVICE_LEAVES, SERVICE_HEIGHT, SERVICE_CAPACITY = 32, 17, 15
+BENCH_ROWS = ("poseidon", "ntt", "msm", "prove")
 # 32-bit multiply-adds of one permutation.  The kernel's arithmetic: an S-box
 # is three Fr products of 272, a row of the MDS step ONE Montgomery dot
 # product of five pairs (5 x 64 limb products and 72 of the reduction, a low
@@ -180,7 +207,7 @@ OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
                "field_addsub_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
-           "padd_comparison", "prove_path")
+           "padd_comparison", "prove_path", "service")
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
@@ -1654,54 +1681,34 @@ def phase_prove_dryrun(dev) -> None:
 
 
 def phase_prove_flagship(dev) -> dict:
-    """The flagship at full width: setup 2^17, compile the 2^16-gate
-    circuit, a first and three warm proves (byte-identical), verify, the
-    refusal of a changed public input; one warm prove is the counted
-    region `prove_path` and one more is profiled."""
-    out = {}
-    circuit = MultiOpeningCircuit.default_for(FLAGSHIP_HEIGHT,
-                                              FLAGSHIP_COUNT)
-    t0 = time.perf_counter()
-    pp = PublicParameters.setup(1 << FLAGSHIP_SETUP_LOG, StdRng(42), dev)
-    torch.cuda.synchronize()
-    out["setup_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    prover, verifier = Compiler.compile_with_circuit(pp, b"flagship",
-                                                     circuit)
-    torch.cuda.synchronize()
-    out["compile_s"] = time.perf_counter() - t0
+    """The flagship at full width through `benches.run_flagship` (the
+    steps `tools/bench_flagship.py` times): setup 2^17, compile the
+    2^16-gate circuit, a first and three warm proves (byte-identical),
+    verify; then the refusal of a changed public input.  The first warm
+    prove is the counted region `prove_path`; one more is profiled."""
+    launches = {}
+
+    @contextlib.contextmanager
+    def main_path():
+        # ---- main path: one warm flagship prove ----
+        kernels.reset_launches()
+        yield
+        launches.update(kernels.LAUNCHES)
+        # ---- end of main path ----
+
+    r = benches.run_flagship(dev, FLAGSHIP_COUNT, FLAGSHIP_SETUP_LOG,
+                             FLAGSHIP_WARM_PROVES, region=main_path)
+    prover, verifier = r["prover"], r["verifier"]
+    proof, pis, circuit = r["proof"], r["pis"], r["circuit"]
+    out = {k: r[k] for k in ("setup_s", "compile_s", "prove_first_s",
+                             "peak_gib", "verify_ms")}
     log(f"flagship: {prover.constraints} gates, domain {prover.size} "
         f"(8n = {8 * prover.size}); setup 2^{FLAGSHIP_SETUP_LOG} "
         f"{out['setup_s']:.3f} s, compile {out['compile_s']:.3f} s")
     if prover.size != N:
         raise AssertionError(f"the flagship domain is {prover.size}, not "
                              f"2^{LOG_N}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    proof, pis = prover.prove(StdRng(7), circuit)
-    torch.cuda.synchronize()
-    out["prove_first_s"] = time.perf_counter() - t0
-
-    metrics.GLOBAL.reset()
-    walls = []
-    blobs = []
-    for i in range(FLAGSHIP_WARM_PROVES):
-        if i == 0:
-            kernels.reset_launches()
-        # ---- main path (i = 0): one warm flagship prove ----
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        proof, pis = prover.prove(StdRng(7), circuit)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if i == 0:
-            launches = dict(kernels.LAUNCHES)
-        # ---- end of main path ----
-        blobs.append(proof.to_bytes())
-    spans = metrics.report()
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    if len(set(blobs)) != 1:
-        raise AssertionError("the warm flagship proofs differ")
+    walls = r["warm_s"]
     out["prove_warm_s"] = sum(walls) / len(walls)
     log(f"flagship prove: first {out['prove_first_s']:.3f} s, warm "
         + ", ".join(f"{w:.3f}" for w in walls)
@@ -1710,12 +1717,9 @@ def phase_prove_flagship(dev) -> dict:
         f"memory {out['peak_gib']:.3f} GiB")
     log("flagship spans, averaged over the warm proves: "
         + "; ".join(f"{k} {v['total_s'] / v['count']:.4f} s"
-                    for k, v in spans.items()))
+                    for k, v in r["spans"].items()))
     log(f"launches of one warm flagship prove: {launches}")
 
-    t0 = time.perf_counter()
-    verifier.verify(proof, pis)
-    out["verify_ms"] = (time.perf_counter() - t0) * 1e3
     if not refuses_changed_input(verifier, proof, pis):
         raise AssertionError("the flagship verifier accepted a changed "
                              "public input")
@@ -1736,6 +1740,179 @@ def phase_prove_flagship(dev) -> dict:
                      "flagship prove")
     out["launches"] = launches
     return out
+
+
+def service_batch(args: list[str]) -> float:
+    """One `batch` call of the service's CLI: its wall s."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = service_cli.main(["batch", *args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(out.getvalue().strip())
+    if rc != 0:
+        raise AssertionError(f"the service's batch returned {rc}: "
+                             f"{out.getvalue()!r}")
+    return wall
+
+
+def service_verify(work: Path, proof: str, pis: str) -> tuple[int, float]:
+    """One `verify` call of the service's CLI on files under `work`, which
+    holds the verifier file: (exit code, ms)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = service_cli.main(["verify", "--proof", str(work / proof),
+                               "--public-inputs", str(work / pis),
+                               "--verifier", str(work / "verifier.bin")])
+    return rc, (time.perf_counter() - t0) * 1e3
+
+
+def phase_service(dev, root: Path) -> dict:
+    """The batch Merkle-membership service at full width through its CLI:
+    make-input of 32 leaves of a height-17 tree, two bad leaves appended
+    (a leaf that is not the opened one, an opening of another tree), then
+    `batch --capacity 15 --height 17 --device cuda` twice into fresh
+    directories: the first compiles and writes the cache (the counted
+    region `service`), the second loads it; both prove the 32 good leaves
+    and write the same 64 files byte for byte.  `verify` accepts every
+    proof and refuses one with a changed public-input byte."""
+    work = root / "zkvm_tpu_torch" / "build" / "service_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    merkle = work / "merkle_some.bin"
+    if service_cli.main(["make-input", "--leaves", str(SERVICE_LEAVES),
+                         "--height", str(SERVICE_HEIGHT),
+                         "--out", str(merkle)]) != 0:
+        raise AssertionError("make-input failed")
+    data = MultipleLeavesData.from_rkyv_bytes(merkle.read_bytes())
+    other = PoseidonTree(SERVICE_HEIGHT)
+    other.insert(0, Item(Fr(5000), None))
+    data.leaves_info += [
+        LeafInfo(0, Fr(4242).to_bytes(), data.leaves_info[0].proof_bytes),
+        LeafInfo(0, Fr(5000).to_bytes(), other.opening(0).to_var_bytes())]
+    merkle.write_bytes(data.to_rkyv_bytes())
+    common = ["--input", str(merkle),
+              "--circuit-cache", str(work / "circuit_prove.bin"),
+              "--verifier-file", str(work / "verifier.bin"),
+              "--capacity", str(SERVICE_CAPACITY),
+              "--height", str(SERVICE_HEIGHT), "--device", dev.type]
+    runs = []
+    for run in ("run1", "run2"):
+        metrics.GLOBAL.reset()
+        torch.cuda.reset_peak_memory_stats()
+        if run == "run1":
+            kernels.reset_launches()
+        # ---- main path (run1): the first batch, which compiles ----
+        wall = service_batch(common + ["--out", str(work / run)])
+        if run == "run1":
+            launches = dict(kernels.LAUNCHES)
+        # ---- end of main path ----
+        report = metrics.report()
+        spans = {k.split("/", 1)[1]: v for k, v in report.items()
+                 if k.startswith("service/") and k.count("/") == 1}
+        files = {p.name: p.read_bytes()
+                 for p in sorted((work / run).iterdir())}
+        proven = spans["first_prove"]["count"] + spans["prove"]["count"]
+        runs.append(dict(proven=proven, wall=wall, spans=spans,
+                         prove_spans={
+                             k[len("service/prove/"):]: v
+                             for k, v in report.items()
+                             if k.startswith("service/prove/")},
+                         files=files,
+                         peak_gib=torch.cuda.max_memory_allocated()
+                         / 2**30))
+        if proven != SERVICE_LEAVES or len(files) != 2 * SERVICE_LEAVES:
+            raise AssertionError(f"{run}: {proven} leaves proven, "
+                                 f"{len(files)} files written")
+    if runs[1]["files"] != runs[0]["files"]:
+        raise AssertionError("the cached prover's files differ from the "
+                             "compiled prover's")
+    if ("compile" not in runs[0]["spans"]
+            or "cache_load" not in runs[1]["spans"]):
+        raise AssertionError("the first run did not compile or the second "
+                             "did not load the cache")
+
+    card = card_line()
+    cache_bytes = (work / "circuit_prove.bin").stat().st_size
+    sp0, sp1 = runs[0]["spans"], runs[1]["spans"]
+    log(f"service-h17 ({card}): {SERVICE_LEAVES} of "
+        f"{len(data.leaves_info)} leaves proven in each run, height "
+        f"{SERVICE_HEIGHT}, capacity 2^{SERVICE_CAPACITY}; the second run's "
+        f"{2 * SERVICE_LEAVES} proof and public-input files (from the "
+        f"cache) byte-identical to the first run's")
+    log(f"service-h17 ({card}): setup 2^{SERVICE_CAPACITY} "
+        f"{sp0['setup']['total_s']:.3f} s, compile "
+        f"{sp0['compile']['total_s']:.3f} s; cache file {cache_bytes} bytes, "
+        f"write {sp0['cache_write']['total_s']:.3f} s, load "
+        f"(Prover.try_from_bytes + Verifier) "
+        f"{sp1['cache_load']['total_s']:.3f} s")
+    for i, r in enumerate(runs):
+        sp = r["spans"]
+        n = sp["prove"]["count"]
+        load = sum(sp[k]["total_s"] for k in ("setup", "compile",
+                                              "cache_write", "cache_load")
+                   if k in sp)
+        log(f"service-h17 run {i + 1} ({card}): wall {r['wall']:.3f} s, "
+            f"circuit {'compile' if i == 0 else 'load'} {load:.3f} s; first "
+            f"leaf's prove {sp['first_prove']['total_s']:.3f} s, mean warm "
+            f"prove {sp['prove']['total_s'] / n:.4f} s a leaf ({n} leaves), "
+            f"{r['proven'] / (r['wall'] - load):.3f} leaves/s over the "
+            f"batch, verify in the batch "
+            f"{sp['verify']['total_s'] / sp['verify']['count'] * 1e3:.2f} "
+            f"ms; peak device memory {r['peak_gib']:.3f} GiB")
+
+    log(f"service-h17 run 2 ({card}), spans averaged over its "
+        f"{runs[1]['spans']['prove']['count']} warm proves: "
+        + "; ".join(f"{k} {v['total_s'] / v['count']:.4f} s"
+                    for k, v in runs[1]["prove_spans"].items()))
+
+    verify_ms = []
+    for i in range(1, SERVICE_LEAVES + 1):
+        rc, ms = service_verify(work, f"run2/plonk_proof_{i}.bin",
+                                f"run2/plonk_publicinputs_{i}.bin")
+        if rc != 0:
+            raise AssertionError(f"verify refused proof {i}")
+        verify_ms.append(ms)
+    changed = bytearray(runs[1]["files"]["plonk_publicinputs_1.bin"])
+    changed[0] ^= 1
+    (work / "changed.bin").write_bytes(bytes(changed))
+    rc, _ = service_verify(work, "run2/plonk_proof_1.bin", "changed.bin")
+    if rc != 1:
+        raise AssertionError(f"verify returned {rc} on a changed public "
+                             f"input")
+    log(f"service-h17 ({card}): CLI verify 0 on all {SERVICE_LEAVES} "
+        f"proofs, mean {sum(verify_ms) / len(verify_ms):.1f} ms a call (the "
+        f"verifier file read and parsed each time), 1 on a changed public "
+        f"input byte")
+    log(f"launches of the first service run (compile + {SERVICE_LEAVES} "
+        f"proves): {launches}")
+    require_launched(launches, ("mont_mul", "mont_pow", "padd",
+                                "window_fold", "carry_fold", "field_addsub"),
+                     "service run")
+    shutil.rmtree(work)
+    return {"launches": launches}
+
+
+def phase_benches(dev) -> None:
+    """The device rows of the benches (`utils/benches.py`) once, on the
+    card: every value finite and positive; the poseidon row launches
+    hades_permute."""
+    card = card_line()
+    log(f"benches ({card}): run_all(only={list(BENCH_ROWS)})")
+    kernels.reset_launches()
+    rows = benches.run_all(only=BENCH_ROWS, device=dev.type)
+    launches = dict(kernels.LAUNCHES)
+    for row in rows:
+        if not (math.isfinite(row["value"]) and row["value"] > 0):
+            raise AssertionError(f"bench row {row} is not finite and "
+                                 f"positive")
+    if len(rows) != 1 + 3 + 3 + 5:
+        raise AssertionError(f"{len(rows)} bench rows")
+    log(f"benches: {len(rows)} rows finite and positive; launches {launches}")
+    require_launched(launches, ("hades_permute",), "poseidon bench row")
 
 
 def device_rows(prof) -> list[tuple[str, float, int]]:
@@ -1886,6 +2063,8 @@ def main() -> int:
         phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
     phase_prove_dryrun(dev)
     fl = phase_prove_flagship(dev)
+    sv = phase_service(dev, Path(__file__).resolve().parent)
+    phase_benches(dev)
 
     # launches: the sum of the counted regions, each also given apart; no
     # single PyTorch call computes any of the ten functions (a Montgomery
@@ -1893,7 +2072,8 @@ def main() -> int:
     # modular addition on limbs), so there is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
-                                 pc["launches"], fl["launches"])))
+                                 pc["launches"], fl["launches"],
+                                 sv["launches"])))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

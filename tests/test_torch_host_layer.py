@@ -8,6 +8,8 @@ come out.  Exact equality throughout.
 """
 
 import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +37,9 @@ import zkvm_tpu_torch.native as pnative
 import zkvm_tpu_torch.params as pparams
 import zkvm_tpu_torch.rng as prng
 import zkvm_tpu_torch.serialize as pserialize
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_poseidon import GOLDEN, TEST_INPUTS  # noqa: E402
 
 # `curves.pairing` as an attribute is the function of that name
 rpairing = importlib.import_module("zkvm_tpu.curves.pairing")
@@ -307,6 +312,26 @@ def test_poseidon_hash_equal_over_every_domain(domain, sizes, n_out):
                      for f in h.finalize_truncated()]))
     assert out[0] == out[1]
     assert len(out[1][0]) == (n_out if domain == "Other" else 1)
+
+
+@pytest.mark.parametrize("n", sorted(GOLDEN))
+def test_poseidon_golden_digests(n):
+    """The reference suite's known answers (coset-poseidon/src/hades.rs:
+    73-142, transcribed in tests/test_poseidon.py) on the port's copy of
+    `hashes`: a sponge with the tag stubbed to zero over the first n test
+    inputs, then a one."""
+
+    class ZeroTagPermutation(phashes.ScalarPermutation):
+        def tag(self, data: bytes):
+            return pfields.Fr.zero()
+
+    inputs = [pfields.Fr.from_hex_str(s) for s in TEST_INPUTS[:n]]
+    io = [psafe.Call.absorb(n), psafe.Call.absorb(1), psafe.Call.squeeze(1)]
+    sponge = psafe.Sponge.start(ZeroTagPermutation(), io, 0)
+    sponge.absorb(n, inputs)
+    sponge.absorb(1, [pfields.Fr.one()])
+    sponge.squeeze(1)
+    assert repr(sponge.finish()[0]) == GOLDEN[n]
 
 
 def test_hades_permutation_equal():

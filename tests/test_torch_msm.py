@@ -129,3 +129,58 @@ def test_multi_set_prefixes_match_host():
     for g, s in zip(got, sets):
         assert (g.to_affine().to_bytes()
                 == _ref_msm_bytes(points[:len(s)], s))
+
+
+class _Recorder:
+    """A stage hook that records the names the pipeline enters, in order,
+    and checks that the stages do not nest."""
+
+    def __init__(self):
+        self.names = []
+        self.open = False
+
+    def __call__(self, name):
+        self.names.append(name)
+        return self
+
+    def __enter__(self):
+        assert not self.open
+        self.open = True
+
+    def __exit__(self, *exc):
+        self.open = False
+
+
+def test_stage_hook_on_the_scan_path():
+    """`msm_many(..., stage=)` enters every stage of the scan path once, in
+    order, and gives the same point as the call without the hook."""
+    points = _points(100, 7)
+    scalars = _scalars(100, 8)
+    ctx = msm.MSMContext(points, "cpu")
+    rec = _Recorder()
+    got = ctx.msm_many([scalars], stage=rec)[0]
+    assert rec.names == ["scalar conversion", "signed digits", "sort",
+                         "gather", "scan tail", "weighted fold",
+                         "window_fold", "host decode"]
+    assert (got.to_affine().to_bytes()
+            == ctx.msm(scalars).to_affine().to_bytes()
+            == _ref_msm_bytes(points, scalars))
+
+
+def test_stage_hook_on_the_halving_tree():
+    """The halving tree forced at n = 1024, c = 10 (one level): the hook
+    sees each level, the scan tail, the reject folds and the fold stages,
+    and the hooked pipeline gives the host's point."""
+    n, c = 1024, 10
+    points = _points(n, 9)
+    scalars = _scalars(n, 10)
+    ctx = msm.MSMContext(points, "cpu")
+    pm, pinf = ctx._padded(n)
+    limbs = lf.FR.to_raw_array([s.value for s in scalars], "cpu")[None]
+    rec = _Recorder()
+    sums = msm._msm_ptree_pipeline(c, pm, pinf, limbs, rec)
+    got = msm._fold_windows(sums, c, 1, [n], rec)[0]
+    assert rec.names == ["signed digits", "sort", "gather", "tree level 1",
+                         "scan tail", "reject folds", "weighted fold",
+                         "window_fold", "host decode"]
+    assert got.to_affine().to_bytes() == _ref_msm_bytes(points, scalars)

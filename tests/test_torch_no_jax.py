@@ -97,6 +97,45 @@ def test_slice_runs_with_jax_blocked():
                                   proof.to_bytes().hex()]
 
 
+_SERVICE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["zkvm_tpu"] = None
+import os
+from zkvm_tpu_torch.service import cli
+from zkvm_tpu_torch.service.formats import (MultipleLeavesData, ZKProofData,
+                                            prover_cache_from_bytes,
+                                            prover_cache_to_bytes)
+from zkvm_tpu_torch.plonk import debugger
+from zkvm_tpu_torch.utils import benches
+out = sys.argv[1]
+assert cli.main(["make-input", "--leaves", "3", "--height", "2",
+                 "--out", out]) == 0
+blob = open(out, "rb").read()
+assert MultipleLeavesData.from_rkyv_bytes(blob).to_rkyv_bytes() == blob
+assert ZKProofData.from_rkyv_bytes(ZKProofData(blob).to_rkyv_bytes()).data == blob
+assert prover_cache_from_bytes(prover_cache_to_bytes(15, blob)) == (15, blob)
+assert not any(m.split(".")[0] in ("jax", "zkvm_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+"""
+
+
+def test_service_runs_with_jax_blocked(tmp_path):
+    """The port's make-input, formats, debugger and benches import with
+    `jax` and `zkvm_tpu` both blocked, and make-input writes the
+    reference's bytes."""
+    import zkvm_tpu.service.cli as rcli
+
+    out = tmp_path / "port.bin"
+    run = subprocess.run([sys.executable, "-c", _SERVICE, str(out)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert rcli.main(["make-input", "--leaves", "3", "--height", "2",
+                      "--out", str(tmp_path / "ref.bin")]) == 0
+    assert out.read_bytes() == (tmp_path / "ref.bin").read_bytes()
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_source_imports_no_jax(path):
     text = path.read_text()

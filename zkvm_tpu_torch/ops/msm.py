@@ -26,6 +26,8 @@ elements.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -182,14 +184,19 @@ def _weighted_fold(buckets):
     return g1_ops.sum_lanes(_scan_padd(buckets, reverse=True))
 
 
-def _sorted_points(c: int, pm, pinf, limbs):
-    """Digits -> one packed-key sort per row -> gathered, sign-applied,
-    bucket-sorted points.  Returns (sid [B, N] int32, x, y, z [B, 12, N])."""
-    s, _, n = limbs.shape
-    half = 1 << (c - 1)
+def _untimed(name: str):
+    """The default stage hook: no measurement."""
+    return contextlib.nullcontext()
+
+
+def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
+    """Signed digits [S, W, N] -> one packed-key sort per digit row.
+
+    Returns (sid [B, N] ascending bucket ids, neg [B, N] sign flags, perm
+    [B, N] point indices); dead lanes (digit 0, the point at infinity) take
+    the sentinel bucket half + 1 and sort last."""
     sent = half + 1
-    d = _signed_digit_tensors(limbs, c)
-    b = s * d.shape[1]
+    b, n = d.shape[0] * d.shape[1], d.shape[2]
     dflat = d.reshape(b, n)
     bucket = torch.where(dflat == 0, sent, dflat.abs())
     bucket = torch.where(pinf[None, :], sent, bucket)
@@ -198,93 +205,127 @@ def _sorted_points(c: int, pm, pinf, limbs):
     # an unstable sort gives the same order, and the sign rides along
     idx_bits = max(n - 1, 1).bit_length()
     if (sent << (idx_bits + 1)) >= (1 << 31):
-        raise ValueError(f"sort key overflows i32 at n={n}, c={c}")
-    iota = torch.arange(n, dtype=torch.int32, device=limbs.device)
+        raise ValueError(f"sort key overflows i32 at n={n}, half={half}")
+    iota = torch.arange(n, dtype=torch.int32, device=d.device)
     neg_bit = (dflat < 0).to(torch.int32) << idx_bits
     packed = torch.sort((bucket << (idx_bits + 1)) | neg_bit | iota,
                         dim=-1).values
     sid = packed >> (idx_bits + 1)
     neg = ((packed >> idx_bits) & 1) == 1
     perm = (packed & ((1 << idx_bits) - 1)).to(torch.int64)
+    return sid, neg, perm
 
+
+def _gather_points(pm, sid, neg, perm, half: int):
+    """Rows of the point-major [N, 36] matrix by the sort's permutation ->
+    x, y, z [B, 12, N], y negated where the digit is negative, dead lanes
+    parked at the identity."""
+    b, n = sid.shape
     l = FQ.n_limbs
     g = pm.index_select(0, perm.reshape(-1))             # [B*N, 36]
     g = g.reshape(b, n, 3 * l).transpose(1, 2)           # [B, 36, N]
     x, y, z = g[:, :l], g[:, l:2 * l], g[:, 2 * l:]
     y = lf.neg(FQ, y, mask=neg)
-    return (sid, *_park_identity(sid >= sent, (x, y, z)))
+    return _park_identity(sid >= half + 1, (x, y, z))
 
 
-def _msm_pipeline(c: int, pm, pinf, limbs):
+def _sorted_points(c: int, pm, pinf, limbs, stage=_untimed):
+    """Digits -> one packed-key sort per row -> gathered, sign-applied,
+    bucket-sorted points.  Returns (sid [B, N] int32, x, y, z [B, 12, N])."""
+    half = 1 << (c - 1)
+    with stage("signed digits"):
+        d = _signed_digit_tensors(limbs, c)
+    with stage("sort"):
+        sid, neg, perm = _sort_digits(d, pinf, half)
+    with stage("gather"):
+        x, y, z = _gather_points(pm, sid, neg, perm, half)
+    return sid, x, y, z
+
+
+def _msm_pipeline(c: int, pm, pinf, limbs, stage=_untimed):
     """pm [N, 36] point-major Montgomery coordinates (x|y|z per row), pinf
     [N] infinity flags, limbs [S, 8, N] canonical scalars.  Returns the
-    [S*W, 12, 1] x/y/z window sums (set-major).  Prefix-scan buckets."""
+    [S*W, 12, 1] x/y/z window sums (set-major).  Prefix-scan buckets.
+    `stage(name)` is a context entered around each stage."""
     half = 1 << (c - 1)
-    sid, x, y, z = _sorted_points(c, pm, pinf, limbs)
-    return _weighted_fold(_bucket_sums_dense(sid, x, y, z, half))
+    sid, x, y, z = _sorted_points(c, pm, pinf, limbs, stage)
+    with stage("scan tail"):
+        buckets = _bucket_sums_dense(sid, x, y, z, half)
+    with stage("weighted fold"):
+        return _weighted_fold(buckets)
 
 
-def _msm_ptree_pipeline(c: int, pm, pinf, limbs):
-    """Same contract as `_msm_pipeline`, halving-tree bucket accumulation.
-
-    At each level adjacent lanes merge with ONE addition where they share a
-    bucket; the left lane of each bucket-boundary pair (at most one per
-    bucket per level, so ids are distinct) is compacted by a key sort into
-    `half` reject slots.  The residual goes through the prefix-scan tail,
-    and each level's rejects scatter into dense slots and fold in with one
-    addition per level."""
-    half = 1 << (c - 1)
+def _tree_level(sid, pts, half: int):
+    """One level of the halving tree: adjacent lanes merge with ONE
+    addition where they share a bucket; the left lane of each
+    bucket-boundary pair (at most one per bucket, so ids are distinct) is
+    compacted by a key sort into `half` reject slots.  Returns (sid, pts)
+    at half the lanes and the level's rejects (rs, x/y/z)."""
     sent = half + 1
-    sid, x, y, z = _sorted_points(c, pm, pinf, limbs)
-    b, _, n = x.shape
+    m = pts[0].shape[-1] // 2
+    left = tuple(t[..., 0::2] for t in pts)
+    right = tuple(t[..., 1::2] for t in pts)
+    sl, sr = sid[:, 0::2], sid[:, 1::2]
+    same = sl == sr
+    pts = g1_ops.pselect(same, g1_ops.padd(left, right), right)
+    rsid = torch.where(same, sent, sl)
+    if m < half:
+        rsid = F.pad(rsid, (0, half - m), value=sent)
+        left = tuple(F.pad(t, (0, half - m)) for t in left)
+        m = half
+    # compact AND sort ascending (the dense scatter binary-searches)
+    pos_bits = max(m - 1, 1).bit_length()
+    riota = torch.arange(m, dtype=torch.int32, device=sid.device)
+    rpacked = torch.sort((rsid << pos_bits) | riota, dim=-1).values[:, :half]
+    rs = rpacked >> pos_bits
+    rp = (rpacked & ((1 << pos_bits) - 1)).to(torch.int64)
+    rej = tuple(_gather_lanes(t, rp) for t in left)
+    return sr, tuple(pts), (rs, _park_identity(rs >= sent, rej))
+
+
+def _msm_ptree_pipeline(c: int, pm, pinf, limbs, stage=_untimed):
+    """Same contract as `_msm_pipeline`, halving-tree bucket accumulation:
+    `_tree_level` while the lanes outnumber the buckets, the residual
+    through the prefix-scan tail, and each level's rejects scattered into
+    dense slots and folded in with one addition per level."""
+    half = 1 << (c - 1)
+    sid, *pts = _sorted_points(c, pm, pinf, limbs, stage)
+    n = pts[0].shape[-1]
     two_adic = (n & -n).bit_length() - 1
     levels = min(max(0, (n // half).bit_length() - 1), two_adic)
     parts = []
-    for _ in range(levels):
-        m = x.shape[-1] // 2
-        left = tuple(t[..., 0::2] for t in (x, y, z))
-        right = tuple(t[..., 1::2] for t in (x, y, z))
-        sl, sr = sid[:, 0::2], sid[:, 1::2]
-        same = sl == sr
-        x, y, z = g1_ops.pselect(same, g1_ops.padd(left, right), right)
-        sid = sr
-        rsid = torch.where(same, sent, sl)
-        if m < half:
-            rsid = F.pad(rsid, (0, half - m), value=sent)
-            left = tuple(F.pad(t, (0, half - m)) for t in left)
-            m = half
-        # compact AND sort ascending (the dense scatter binary-searches)
-        pos_bits = max(m - 1, 1).bit_length()
-        riota = torch.arange(m, dtype=torch.int32, device=sid.device)
-        rpacked = torch.sort((rsid << pos_bits) | riota,
-                             dim=-1).values[:, :half]
-        rs = rpacked >> pos_bits
-        rp = (rpacked & ((1 << pos_bits) - 1)).to(torch.int64)
-        rej = tuple(_gather_lanes(t, rp) for t in left)
-        parts.append((rs, _park_identity(rs >= sent, rej)))
-
-    buckets = _bucket_sums_dense(sid, x, y, z, half)
-    for rs, rej in parts:
-        buckets = g1_ops.padd(buckets, _scatter_dense(rs, rej, half))
-    return _weighted_fold(buckets)
+    for level in range(levels):
+        with stage(f"tree level {level + 1}"):
+            sid, pts, rejects = _tree_level(sid, pts, half)
+        parts.append(rejects)
+    with stage("scan tail"):
+        buckets = _bucket_sums_dense(sid, *pts, half)
+    with stage("reject folds"):
+        for rs, rej in parts:
+            buckets = g1_ops.padd(buckets, _scatter_dense(rs, rej, half))
+    with stage("weighted fold"):
+        return _weighted_fold(buckets)
 
 
-def _fold_windows(sums, c: int, n_sets: int,
-                  set_sizes) -> list[G1Projective]:
+def _fold_windows(sums, c: int, n_sets: int, set_sizes,
+                  stage=_untimed) -> list[G1Projective]:
     """Window fold (one window_fold launch) + host decode."""
     w_count = sums[0].shape[0] // n_sets
-    acc = lf.tensor_to_u32(kernels.window_fold(
-        c, w_count, n_sets, *(t.contiguous() for t in sums)))  # [3, 12, S]
-    rinv = pow(FQ.R, -1, FQ.modulus)
-    out = []
-    for s_i in range(n_sets):
-        if not set_sizes[s_i]:
-            out.append(G1Projective.identity())
-            continue
-        cx, cy, cz = (lf.limbs_to_int(acc[k][:, s_i]) * rinv % FQ.modulus
-                      for k in range(3))
-        out.append(G1Projective(Fp(cx), Fp(cy), Fp(cz)))
-    return out
+    with stage("window_fold"):
+        acc = kernels.window_fold(c, w_count, n_sets,
+                                  *(t.contiguous() for t in sums))
+    with stage("host decode"):
+        acc = lf.tensor_to_u32(acc)  # [3, 12, S]
+        rinv = pow(FQ.R, -1, FQ.modulus)
+        out = []
+        for s_i in range(n_sets):
+            if not set_sizes[s_i]:
+                out.append(G1Projective.identity())
+                continue
+            cx, cy, cz = (lf.limbs_to_int(acc[k][:, s_i]) * rinv % FQ.modulus
+                          for k in range(3))
+            out.append(G1Projective(Fp(cx), Fp(cy), Fp(cz)))
+        return out
 
 
 def _pad_points(points, n_pad: int):
@@ -315,21 +356,27 @@ class MSMContext:
         """MSM of the first len(scalars) points."""
         return self.msm_many([scalars])[0]
 
-    def msm_many(self, scalar_sets: list[list[Fr]]) -> list[G1Projective]:
+    def msm_many(self, scalar_sets: list[list[Fr]],
+                 stage=_untimed) -> list[G1Projective]:
         """Several MSMs over (prefixes of) the point set in ONE pipeline:
         per-set digit rows stack along the window axis.  Scalar counts pad
-        to a size class; dead lanes never enter a bucket."""
+        to a size class; dead lanes never enter a bucket.  `stage(name)`
+        is a context entered around each stage of the pipeline (none by
+        default; `tools/prof_msm.py` passes one that synchronises and
+        times)."""
         sizes = [len(s) for s in scalar_sets]
         if max(sizes) > self.n:
             raise ValueError(f"{max(sizes)} scalars for {self.n} points")
         n_pad = _granule(max(sizes))
-        vals = []
-        for scalars in scalar_sets:
-            vals.extend([s.value for s in scalars]
-                        + [0] * (n_pad - len(scalars)))
-        raw = FR.to_raw_array(vals, self.device)  # [8, S*n_pad]
-        limbs = raw.reshape(FR.n_limbs, len(sizes), n_pad).transpose(0, 1)
-        return self._run(limbs.contiguous(), sizes, n_pad)
+        with stage("scalar conversion"):
+            vals = []
+            for scalars in scalar_sets:
+                vals.extend([s.value for s in scalars]
+                            + [0] * (n_pad - len(scalars)))
+            raw = FR.to_raw_array(vals, self.device)  # [8, S*n_pad]
+            limbs = raw.reshape(FR.n_limbs, len(sizes), n_pad).transpose(0, 1)
+            limbs = limbs.contiguous()
+        return self._run(limbs, sizes, n_pad, stage)
 
     def msm_many_mont(self, coeff_tensors) -> list[G1Projective]:
         """MSMs from device-resident Montgomery coefficient tensors
@@ -358,12 +405,13 @@ class MSMContext:
             ent = self._pad_cache[n_pad] = (pm, pinf)
         return ent
 
-    def _run(self, limbs, sizes, n_pad) -> list[G1Projective]:
+    def _run(self, limbs, sizes, n_pad,
+             stage=_untimed) -> list[G1Projective]:
         pm, pinf = self._padded(n_pad)
         if n_pad >= PTREE_MIN_POINTS:
             c = _ptree_window_bits(n_pad)
-            sums = _msm_ptree_pipeline(c, pm, pinf, limbs)
+            sums = _msm_ptree_pipeline(c, pm, pinf, limbs, stage)
         else:
             c = _window_bits(n_pad)
-            sums = _msm_pipeline(c, pm, pinf, limbs)
-        return _fold_windows(sums, c, len(sizes), sizes)
+            sums = _msm_pipeline(c, pm, pinf, limbs, stage)
+        return _fold_windows(sums, c, len(sizes), sizes, stage)

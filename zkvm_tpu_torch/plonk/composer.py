@@ -30,7 +30,7 @@ class Runtime:
 
     Listeners receive ('witness_appended', w, v), ('constraint_appended', c)
     and ('proof_finished',) events; the CDF-style circuit debugger
-    (zkvm_tpu.plonk.debugger) subscribes here.
+    (`plonk/debugger.py` of this package) subscribes here.
     """
 
     def __init__(self):
