@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the port's PLONK prover (setup -> compile -> prove -> verify), its
-batch Merkle-membership service, its KZG commitment path, the polynomial
-path of a prover round and the Poseidon/Merkle path once on one NVIDIA GPU.
+"""Drive the port's PLONK prover (setup -> compile -> prove -> verify), on
+one device and over a mesh, its batch Merkle-membership service, its KZG
+commitment path, the polynomial path of a prover round and the
+Poseidon/Merkle path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -73,7 +74,22 @@ Phases (any failure exits non-zero; no phase catches its own error):
      the per-round spans averaged over the warm proves, verify ms, peak
      device memory, the device's busy share of one warm prove
      (torch.profiler), the gates and the domain size;
- 11. the batch service at full width, through its CLI
+ 11. the mesh: the flagship prover of phase 10 (setup and compile reused)
+     over a mesh of four logical shards of the card (Mesh([cuda:0] * 4)),
+     and over the real cards where torch.cuda.device_count() >= 2: a first
+     and three warm mesh proves under StdRng(7), each byte-identical to the
+     flagship's warm proof, verified, a changed public input refused, with
+     single-device warm proves before and after in the same call; then
+     DistributedDomain(2^19) coset fft / coset ifft on [8, 2^19] bit for
+     bit against Domain(2^19), msm_sharded of 2^16 seeded points (the SRS
+     powers, seeded scalars) against the native host MSM, the forest of
+     4^10 leaves over four shards against merkle_tree_levels' root, and
+     dryrun_multichip on meshes of 2, 4 and 8 shards, each equal to
+     tests/fixtures/dryrun_proof_v1.bin.  It prints the mesh prove's first
+     and warm times and spans, the single-device warm prove, the peak
+     device memory of the warm mesh proves and each component's ms, each
+     beside the card's name and power limit, and which meshes ran;
+ 12. the batch service at full width, through its CLI
      (zkvm_tpu_torch.service.cli): make-input of 32 leaves of a height-17
      tree, two bad leaves appended (a leaf that is not the opened one, an
      opening of another tree), then `batch --capacity 15 --height 17
@@ -86,14 +102,15 @@ Phases (any failure exits non-zero; no phase catches its own error):
      cache's bytes and its write and load times, the first leaf's prove,
      the mean warm prove, leaves/s, verify ms and peak device memory, each
      beside the card's name and power limit;
- 12. the device rows of the benches (utils/benches.py: poseidon, ntt, msm,
+ 13. the device rows of the benches (utils/benches.py: poseidon, ntt, msm,
      prove) once on the card, each value finite and positive, the poseidon
      row launching hades_permute;
- 13. every kernel's launch count must be above zero in some region.  The
+ 14. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
      whole-transform cross-checks (the only callers of butterfly and fold),
-     the Merkle path, the padd comparison, one warm flagship prove and the
+     the Merkle path, the padd comparison, one warm flagship prove, the
+     mesh (one warm mesh prove and one run of each mesh component) and the
      first service run (compile and 32 proves), reported apart.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
@@ -126,11 +143,13 @@ from zkvm_tpu_torch.hashes import Domain, Hash, hades_permute  # noqa: E402
 from zkvm_tpu_torch.merkle import (Item, PoseidonTree,  # noqa: E402
                                    poseidon_opening_from_slice)
 from zkvm_tpu_torch.native import native_msm  # noqa: E402
-from zkvm_tpu_torch.ops import (g1_ops, kernels, ntt, ntt_mxu,  # noqa: E402
-                                poseidon)
+from zkvm_tpu_torch.ops import (g1_ops, kernels, msm, ntt,  # noqa: E402
+                                ntt_mxu, poseidon)
+from zkvm_tpu_torch.ops.collective import Mesh  # noqa: E402
+from zkvm_tpu_torch.ops.ntt_sharded import DistributedDomain  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk import PlonkError, dpoly, kzg10  # noqa: E402
+from zkvm_tpu_torch.plonk import PlonkError, Proof, dpoly, kzg10  # noqa: E402
 from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
                                         PublicParameters, powers_of)
 from zkvm_tpu_torch.rng import StdRng  # noqa: E402
@@ -138,6 +157,7 @@ from zkvm_tpu_torch.service import cli as service_cli  # noqa: E402
 from zkvm_tpu_torch.service.formats import (LeafInfo,  # noqa: E402
                                             MultipleLeavesData)
 from zkvm_tpu_torch.utils import benches, dryrun, metrics  # noqa: E402
+from zkvm_tpu_torch.utils.dryrun import forest_root  # noqa: E402
 
 SEED = 2026
 LOG_N = 16
@@ -151,6 +171,10 @@ HADES_LANES = 1 << 14     # the permutation's own shape, [5, 8, 2^14]
 # tree in one circuit, 2^16 gates, on an SRS of 2^17
 FLAGSHIP_COUNT, FLAGSHIP_SETUP_LOG = 21, 17
 FLAGSHIP_WARM_PROVES = 3
+# the mesh phase: the flagship over 4 logical shards of the card; then
+# dryrun_multichip over 2, 4 and 8
+MESH_SHARDS, MESH_WARM_PROVES = 4, 3
+DRYRUN_MESH_SHARDS = (2, 4, 8)
 # the batch service at its own tree height (DEFAULT_TREE_HEIGHT): the
 # height-17 opening circuit has 17,158 gates, a domain of 2^15, and needs an
 # SRS of 2^15 (the default capacity, 13, cannot hold it)
@@ -207,7 +231,7 @@ OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
                "field_addsub_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
-           "padd_comparison", "prove_path", "service")
+           "padd_comparison", "prove_path", "mesh", "service")
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
@@ -1739,6 +1763,196 @@ def phase_prove_flagship(dev) -> dict:
                                 "carry_fold", "field_addsub"),
                      "flagship prove")
     out["launches"] = launches
+    out.update(prover=prover, verifier=verifier, circuit=circuit,
+               proof_bytes=proof.to_bytes())
+    return out
+
+
+def mesh_prove(prover, circuit, mesh) -> tuple[float, bytes, list]:
+    """One flagship prove over `mesh`: (wall s, proof bytes, public
+    inputs)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof, pis = prover.prove(StdRng(7), circuit, mesh=mesh)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, proof.to_bytes(), pis
+
+
+def phase_mesh(rng, dev, fl) -> dict:
+    """The flagship prover of the flagship phase (its setup and compile
+    reused) over a mesh of MESH_SHARDS logical shards of the card, and over
+    the real cards where there are two or more: a first and three warm
+    mesh proves, each byte-identical to the flagship's warm proof, verified,
+    a changed public input refused; single-device warm proves before and
+    after, in the same call.  Then the mesh's components at the flagship's
+    sizes, each against its single-device counterpart: DistributedDomain
+    (2^19) coset fft and coset ifft against Domain, msm_sharded of 2^16
+    seeded points against the native host MSM, the forest of 4^10 leaves
+    against merkle_tree_levels; and dryrun_multichip at 2, 4 and 8
+    shards.  The counted region `mesh` is the first warm mesh prove and
+    one run of each component."""
+    t_phase = time.perf_counter()
+    prover, verifier, circuit = fl["prover"], fl["verifier"], fl["circuit"]
+    want = fl["proof_bytes"]
+    mesh = Mesh([dev] * MESH_SHARDS)
+    card = card_line()
+    out = {}
+
+    def check(blob, what):
+        if blob != want:
+            raise AssertionError(f"the {what} proof differs from the "
+                                 f"single-device flagship proof")
+
+    def single_prove() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof, _ = prover.prove(StdRng(7), circuit)
+        torch.cuda.synchronize()
+        check(proof.to_bytes(), "single-device")
+        return time.perf_counter() - t0
+
+    out["first_s"], blob, pis = mesh_prove(prover, circuit, mesh)
+    check(blob, "first mesh")
+    singles = [single_prove()]
+
+    n8 = 8 * prover.size
+    dd8 = DistributedDomain(n8, mesh)
+    x = lf.u32_to_tensor(rand_field(FR, (FR.n_limbs, n8), rng), dev)
+    points = prover.commit_key.powers_of_g[:N]
+    scalars = [Fr(v) for v in random_leaves(rng, N)]
+    leaves = lf.u32_to_tensor(rand_field(FR, (FR.n_limbs, 4 ** MERKLE_HEIGHT),
+                                          rng), dev)
+
+    metrics.GLOBAL.reset()
+    kernels.reset_launches()
+    # ---- main path: one warm mesh prove and the mesh's components ----
+    wall, blob, pis = mesh_prove(prover, circuit, mesh)
+    evals = dd8.coset_fft_device(x)
+    back = dd8.coset_ifft_device(evals)
+    msm_point = msm.msm_sharded(points, scalars, mesh)
+    root = forest_root(leaves, mesh)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # ---- end of main path ----
+    check(blob, "warm mesh")
+    warm = [wall]
+    # outside the region: the launches of one warm mesh prove alone, and the
+    # peak device memory of the warm mesh proves and of a single-device one
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MESH_WARM_PROVES - 1):
+        kernels.reset_launches()
+        wall, blob, pis = mesh_prove(prover, circuit, mesh)
+        if i == 0:
+            prove_launches = dict(kernels.LAUNCHES)
+        check(blob, "warm mesh")
+        warm.append(wall)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    spans = metrics.report()
+    torch.cuda.reset_peak_memory_stats()
+    singles.append(single_prove())
+    out["single_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["warm_s"] = sum(warm) / len(warm)
+    out["single_warm_s"] = sum(singles) / len(singles)
+    proof = Proof.from_bytes(blob)
+    verifier.verify(proof, pis)
+    if not refuses_changed_input(verifier, proof, pis):
+        raise AssertionError("the verifier accepted a changed public input "
+                             "of a mesh proof")
+    log(f"mesh prove ({card}): {mesh}, flagship {prover.constraints} gates, "
+        f"first {out['first_s']:.3f} s, warm "
+        + ", ".join(f"{w:.3f}" for w in warm)
+        + f" s (mean {out['warm_s']:.3f} s); single-device warm in the same "
+        f"call " + ", ".join(f"{w:.3f}" for w in singles)
+        + f" s (mean {out['single_warm_s']:.3f} s); the {1 + len(warm)} mesh "
+        f"proofs equal the single-device proof byte for byte, verified, a "
+        f"changed public input refused; peak device memory of the warm "
+        f"mesh proves {out['peak_gib']:.3f} GiB, of a warm single-device "
+        f"prove {out['single_peak_gib']:.3f} GiB")
+    log(f"mesh prove spans ({card}), averaged over the warm mesh proves: "
+        + "; ".join(f"{k} {v['total_s'] / v['count']:.4f} s"
+                    for k, v in spans.items()))
+    log(f"launches of one warm mesh prove: {prove_launches}")
+    rows = profiled("one warm mesh prove",
+                    lambda: prover.prove(StdRng(7), circuit, mesh=mesh),
+                    top=14)
+    busy = sum(us for _, us, _ in rows) / 1e3
+    out["busy_share"] = busy / (out["warm_s"] * 1e3)
+    log(f"  busy share of a warm mesh prove {out['busy_share']:.4f} (device "
+        f"busy {busy:.3f} ms over the mean warm wall without the profiler)")
+    log(f"launches of the mesh region (one warm mesh prove, the 2^19 coset "
+        f"pair, msm_sharded of 2^16, the 4^{MERKLE_HEIGHT} forest): "
+        f"{launches}")
+
+    # ---- checks of the components against one device ----
+    dom8 = ntt.Domain(n8)
+    if not torch.equal(evals, dom8.coset_fft_device(x)):
+        raise AssertionError("DistributedDomain coset_fft differs from "
+                             "Domain's")
+    if not (torch.equal(back, dom8.coset_ifft_device(evals))
+            and torch.equal(back, x)):
+        raise AssertionError("DistributedDomain coset_ifft differs from "
+                             "Domain's")
+    if msm_point != native_commit(points, scalars):
+        raise AssertionError("msm_sharded differs from the native host MSM")
+    if not torch.equal(root, poseidon.merkle_tree_levels(leaves)[-1]):
+        raise AssertionError("the forest root differs from "
+                             "merkle_tree_levels' root")
+    ctx = msm.MSMContext(points, dev)
+    coeffs = [FR.to_mont_array([v.value for v in scalars], dev)]
+    ms = {
+        "coset_fft": cuda_ms(lambda: dd8.coset_fft_device(x), 3),
+        "coset_fft_one_device": cuda_ms(lambda: dom8.coset_fft_device(x), 3),
+        "coset_ifft": cuda_ms(lambda: dd8.coset_ifft_device(evals), 3),
+        "coset_ifft_one_device": cuda_ms(
+            lambda: dom8.coset_ifft_device(evals), 3),
+        "msm_sharded": cuda_ms(lambda: msm.msm_sharded(points, scalars,
+                                                       mesh), 2),
+        "msm_many_mont_mesh": cuda_ms(
+            lambda: ctx.msm_many_mont(coeffs, mesh=mesh), 3),
+        "msm_many_mont_one_device": cuda_ms(
+            lambda: ctx.msm_many_mont(coeffs), 3),
+        "forest": cuda_ms(lambda: forest_root(leaves, mesh), 2),
+        "levels_one_device": cuda_ms(
+            lambda: poseidon.merkle_tree_levels(leaves), 2),
+    }
+    out["component_ms"] = ms
+    log(f"mesh components ({card}), ms by CUDA events: "
+        f"DistributedDomain(2^{n8.bit_length() - 1}) coset_fft "
+        f"{ms['coset_fft']:.3f} (Domain {ms['coset_fft_one_device']:.3f}), "
+        f"coset_ifft {ms['coset_ifft']:.3f} (Domain "
+        f"{ms['coset_ifft_one_device']:.3f}), bit for bit; msm_sharded of "
+        f"{N} points {ms['msm_sharded']:.3f} (host encoding and decoding "
+        f"included), equal to the native host MSM; one set of 2^16 "
+        f"Montgomery coefficients on a built context (the commits' call) "
+        f"{ms['msm_many_mont_mesh']:.3f} over the mesh, "
+        f"{ms['msm_many_mont_one_device']:.3f} on one device; forest of "
+        f"4^{MERKLE_HEIGHT} leaves over {MESH_SHARDS} shards "
+        f"{ms['forest']:.3f} (merkle_tree_levels {ms['levels_one_device']:.3f}"
+        f"), the same root")
+
+    for shards in DRYRUN_MESH_SHARDS:
+        t0 = time.perf_counter()
+        dryrun.dryrun_multichip(Mesh([dev] * shards))
+        log(f"dryrun_multichip on {shards} logical shards of {dev}: forest, "
+            f"msm_sharded, DistributedDomain and the mesh prove equal to "
+            f"tests/fixtures/dryrun_proof_v1.bin, verified "
+            f"({time.perf_counter() - t0:.3f} s)")
+    meshes = [str(mesh)] + [f"{s} logical shards of {dev}"
+                            for s in DRYRUN_MESH_SHARDS]
+    if torch.cuda.device_count() >= 2:
+        cards = Mesh([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        wall, blob, _ = mesh_prove(prover, circuit, cards)
+        check(blob, "multi-card mesh")
+        dryrun.dryrun_multichip(cards)
+        log(f"mesh prove over the cards {cards}: {wall:.3f} s, equal to the "
+            f"single-device proof; dryrun_multichip passed")
+        meshes.append(str(cards))
+    log(f"meshes that ran: {meshes}; the mesh phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    require_launched(launches, ("padd", "window_fold", "mont_mul",
+                                "carry_fold", "field_addsub",
+                                "hades_permute"), "mesh path")
+    out["launches"] = launches
     return out
 
 
@@ -2050,7 +2264,7 @@ def main() -> int:
             log(f"  {entry}: {line.split(':', 1)[-1].strip()}")
 
     rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)  # the home device of the meshes
     rec = phase_parity(rng, dev)
     phase_matmul_exact(dev)
     sl = phase_slice(rng, dev)
@@ -2063,6 +2277,7 @@ def main() -> int:
         phase_profile(rng, dev, sl["commit_key"], sl["opening_key"])
     phase_prove_dryrun(dev)
     fl = phase_prove_flagship(dev)
+    mh = phase_mesh(rng, dev, fl)
     sv = phase_service(dev, Path(__file__).resolve().parent)
     phase_benches(dev)
 
@@ -2073,7 +2288,7 @@ def main() -> int:
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"], fl["launches"],
-                                 sv["launches"])))
+                                 mh["launches"], sv["launches"])))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

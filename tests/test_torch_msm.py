@@ -82,6 +82,43 @@ def test_signed_digits_match_reference(c):
     assert (got.numpy() == want).all()
 
 
+def test_sort_fallback_orders_as_the_packed_key():
+    """Where the packed i32 key fits (n = 300, c = 8), the stable sort that
+    takes over where it overflows gives the same (sid, neg, perm)."""
+    c = 8
+    half = 1 << (c - 1)
+    vals = [s.value for s in _adversarial(_scalars(300, 7))]
+    limbs = lf.FR.to_raw_array(vals, "cpu")[None]
+    d = msm._signed_digit_tensors(limbs, c)
+    pinf = torch.zeros(300, dtype=torch.bool)
+    pinf[[3, 40]] = True
+    sid, neg, perm = msm._sort_digits(d, pinf, half)
+    dflat = d.reshape(-1, 300)
+    bucket = torch.where(dflat == 0, half + 1, dflat.abs())
+    bucket = torch.where(pinf[None, :], half + 1, bucket)
+    got = msm._sort_stable(bucket, (dflat < 0).to(torch.int32))
+    assert torch.equal(got[0], sid) and torch.equal(got[1], neg)
+    assert torch.equal(got[2], perm)
+
+
+def test_sort_digits_past_the_packed_key():
+    """At [1, 1, 2^18] with half = 4096 the packed key overflows i32; the
+    rows still sort by (bucket, sign, index), as a numpy lexsort does."""
+    n, half = 1 << 18, 4096
+    assert ((half + 1) << ((n - 1).bit_length() + 1)) >= (1 << 31)
+    rng = np.random.default_rng(9)
+    d = torch.from_numpy(rng.integers(-half, half + 1, size=(1, 1, n),
+                                      dtype=np.int32))
+    pinf = torch.from_numpy(rng.random(n) < 0.01)
+    sid, neg, perm = msm._sort_digits(d, pinf, half)
+    dn = d.reshape(n).numpy()
+    bucket = np.where((dn == 0) | pinf.numpy(), half + 1, np.abs(dn))
+    order = np.lexsort((np.arange(n), dn < 0, bucket))
+    assert (perm[0].numpy() == order).all()
+    assert (sid[0].numpy() == bucket[order]).all()
+    assert (neg[0].numpy() == (dn[order] < 0)).all()
+
+
 def test_scan_path_matches_host():
     """MSMContext.msm below PTREE_MIN_POINTS: the prefix-scan pipeline,
     with a point at infinity and a duplicate point."""

@@ -136,6 +136,43 @@ def test_service_runs_with_jax_blocked(tmp_path):
     assert out.read_bytes() == (tmp_path / "ref.bin").read_bytes()
 
 
+_MESH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["zkvm_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from zkvm_tpu_torch.ops.collective import Mesh, sharded_scan_mul
+from zkvm_tpu_torch.ops.limb_field import FR
+from zkvm_tpu_torch.plonk import dpoly
+x = FR.to_mont_array([3 * i + 1 for i in range(16)], "cpu")
+got = sharded_scan_mul(x, Mesh(["cpu", "cpu"]))
+assert torch.equal(got, dpoly.prefix_products(x))
+assert not any(m.split(".")[0] in ("jax", "zkvm_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print(FR.from_mont_array(got[:, -1:])[0])
+"""
+
+
+def test_mesh_scan_runs_with_jax_blocked():
+    """A 2-shard `sharded_scan_mul` with `jax` and `zkvm_tpu` blocked; its
+    last element is the product of the 16 values."""
+    out = subprocess.run([sys.executable, "-c", _MESH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    want = 1
+    for i in range(16):
+        want = want * (3 * i + 1) % Fr.MODULUS
+    assert out.stdout.split() == [str(want)]
+
+
+def test_the_grep_covers_the_mesh_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"zkvm_tpu_torch/ops/collective.py",
+            "zkvm_tpu_torch/ops/ntt_sharded.py",
+            "zkvm_tpu_torch/utils/dryrun.py", "chip_smoke.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_source_imports_no_jax(path):
     text = path.read_text()
@@ -152,6 +189,10 @@ def test_cuda_request_without_cuda_raises():
         kzg10.PublicParameters.setup(2, PStdRng(1), "cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         PoseidonTree.from_leaves(1, [PFr(i) for i in range(4)], "cuda")
+    from zkvm_tpu_torch.ops.collective import Mesh
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        Mesh(["cuda", "cuda"])
     from test_torch_plonk_host import FixedCircuit
     from zkvm_tpu_torch.plonk import Prover
 

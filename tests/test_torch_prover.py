@@ -117,10 +117,3 @@ def test_gate1_prove_runs_every_round_through_the_kernels(proofs):
                                "round5_openings"))
     assert all(v["count"] == 1 for v in spans.values())
     assert all(calls[name] > 0 for name in WRAPPERS), calls
-
-
-def test_mesh_is_not_ported():
-    pb = (FIXTURES / "prover_bundle_v1.bin").read_bytes()
-    with pytest.raises(NotImplementedError):
-        Prover.try_from_bytes(pb, "cpu").prove(StdRng(5), FixedCircuit(),
-                                               mesh=object())

@@ -1,7 +1,7 @@
 """Device Pippenger MSM: bucket accumulation by sort + segmented sums.
 
-Counterpart of `zkvm_tpu/ops/msm.py` (single device).  The pipeline is the
-reference's, step for step:
+Counterpart of `zkvm_tpu/ops/msm.py`.  The pipeline is the reference's,
+step for step:
 
   1. signed radix-2^c digits [S*W, N] from canonical scalar limbs;
   2. one sort per digit row of a packed i32 key (bucket, sign, index);
@@ -18,6 +18,10 @@ reference's, step for step:
 
 Every point addition goes through the padd kernel and the final fold
 through the window_fold kernel (their plain versions for CPU tensors).
+On a mesh (`msm_sharded`, `MSMContext.msm_many_mont(mesh=...)`) each
+shard runs steps 1-6 on its slice of the points with the prefix scan, and
+the shards' window sums are added in shard order before step 7.
+
 The scan is a log-depth tensor recursion of additions on strided slices,
 the same code on every device.  Projective coordinates therefore differ
 from the reference's (another addition order); results agree as group
@@ -190,30 +194,43 @@ def _untimed(name: str):
 
 
 def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
-    """Signed digits [S, W, N] -> one packed-key sort per digit row.
+    """Signed digits [S, W, N] -> one sort per digit row.
 
     Returns (sid [B, N] ascending bucket ids, neg [B, N] sign flags, perm
     [B, N] point indices); dead lanes (digit 0, the point at infinity) take
-    the sentinel bucket half + 1 and sort last."""
+    the sentinel bucket half + 1 and sort last.  Within a bucket the
+    positive digits come first, each sign in index order."""
     sent = half + 1
     b, n = d.shape[0] * d.shape[1], d.shape[2]
     dflat = d.reshape(b, n)
     bucket = torch.where(dflat == 0, sent, dflat.abs())
     bucket = torch.where(pinf[None, :], sent, bucket)
-
-    # pack (bucket, sign, index) into ONE i32 key: the keys are unique, so
-    # an unstable sort gives the same order, and the sign rides along
+    neg_bit = (dflat < 0).to(torch.int32)
     idx_bits = max(n - 1, 1).bit_length()
-    if (sent << (idx_bits + 1)) >= (1 << 31):
-        raise ValueError(f"sort key overflows i32 at n={n}, half={half}")
-    iota = torch.arange(n, dtype=torch.int32, device=d.device)
-    neg_bit = (dflat < 0).to(torch.int32) << idx_bits
-    packed = torch.sort((bucket << (idx_bits + 1)) | neg_bit | iota,
-                        dim=-1).values
+    if (sent << (idx_bits + 1)) < (1 << 31):
+        return _sort_packed(bucket, neg_bit, idx_bits)
+    # the packed key overflows i32 (from n > 2^17 at c = 13)
+    return _sort_stable(bucket, neg_bit)
+
+
+def _sort_packed(bucket, neg_bit, idx_bits: int):
+    """(bucket, sign, index) packed into ONE i32 key: the keys are unique,
+    so an unstable sort gives the same order, and the sign rides along."""
+    iota = torch.arange(bucket.shape[-1], dtype=torch.int32,
+                        device=bucket.device)
+    packed = torch.sort((bucket << (idx_bits + 1)) | (neg_bit << idx_bits)
+                        | iota, dim=-1).values
     sid = packed >> (idx_bits + 1)
     neg = ((packed >> idx_bits) & 1) == 1
     perm = (packed & ((1 << idx_bits) - 1)).to(torch.int64)
     return sid, neg, perm
+
+
+def _sort_stable(bucket, neg_bit):
+    """The same order as `_sort_packed` at any lane count: a stable sort
+    of (bucket, sign) keeps the index order within each key."""
+    key, perm = torch.sort((bucket << 1) | neg_bit, dim=-1, stable=True)
+    return key >> 1, (key & 1) == 1, perm
 
 
 def _gather_points(pm, sid, neg, perm, half: int):
@@ -328,6 +345,15 @@ def _fold_windows(sums, c: int, n_sets: int, set_sizes,
         return out
 
 
+def _combine_gathered(gathered):
+    """Sum a [D, ...] gather of window-sum triples over axis 0, in shard
+    order, with one addition per shard."""
+    total = tuple(t[0] for t in gathered)
+    for d in range(1, gathered[0].shape[0]):
+        total = g1_ops.padd(total, tuple(t[d] for t in gathered))
+    return total
+
+
 def _pad_points(points, n_pad: int):
     """[12, n] point coords -> [12, n_pad], padded with identities."""
     n = points[0].shape[-1]
@@ -378,10 +404,14 @@ class MSMContext:
             limbs = limbs.contiguous()
         return self._run(limbs, sizes, n_pad, stage)
 
-    def msm_many_mont(self, coeff_tensors) -> list[G1Projective]:
+    def msm_many_mont(self, coeff_tensors, mesh=None,
+                      axis: str | None = None) -> list[G1Projective]:
         """MSMs from device-resident Montgomery coefficient tensors
         ([8, len_i] int32 each) -- the commit path of a device-resident
-        prover (no host scalar conversion)."""
+        prover (no host scalar conversion).  With `mesh` (whose home is the
+        context's device), points and scalars shard across the mesh and
+        the shards' window sums are added on the home device (the partial
+        sums of `msm_sharded`)."""
         sizes = [int(t.shape[-1]) for t in coeff_tensors]
         if max(sizes) > self.n:
             raise ValueError(f"{max(sizes)} scalars for {self.n} points")
@@ -389,10 +419,36 @@ class MSMContext:
             if t.device != self.device:
                 raise ValueError(f"coefficients on {t.device}, points on "
                                  f"{self.device}")
+        if mesh is not None:
+            mesh.axis(axis)
+            return self._run_sharded(coeff_tensors, sizes, mesh)
         n_pad = _granule(max(sizes))
         padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
                               for t in coeff_tensors])  # [S, 8, n_pad]
         return self._run(lf.from_mont(FR, padded), sizes, n_pad)
+
+    def _run_sharded(self, tensors, sizes, mesh) -> list[G1Projective]:
+        """Each shard pads to `_granule(ceil(n / D))` and runs the scan
+        pipeline on its slice of the points and of the Montgomery scalars;
+        the window sums are gathered and added in shard order."""
+        if mesh.home != self.device:
+            raise ValueError(f"the mesh's home is {mesh.home}, the points "
+                             f"are on {self.device}")
+        shard = _granule(-(-max(sizes) // mesh.size))
+        n_pad = shard * mesh.size
+        c = _window_bits(shard)
+        pm, pinf = self._padded(n_pad)
+        padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
+                              for t in tensors])  # [S, 8, n_pad]
+        sums = []
+        for pm_d, pinf_d, x_d in zip(mesh.split(pm, 0), mesh.split(pinf),
+                                     mesh.split(padded)):
+            sums.append(_msm_pipeline(c, pm_d, pinf_d,
+                                      lf.from_mont(FR, x_d)))
+        gathered = tuple(mesh.gather([s[k].unsqueeze(0) for s in sums], 0)
+                         for k in range(3))  # x, y, z [D, S*W, 12, 1]
+        return _fold_windows(_combine_gathered(gathered), c, len(sizes),
+                             sizes)
 
     def _padded(self, n_pad: int):
         """Point-major [N, 36] matrix and infinity flags, cached per size
@@ -415,3 +471,22 @@ class MSMContext:
             c = _window_bits(n_pad)
             sums = _msm_pipeline(c, pm, pinf, limbs, stage)
         return _fold_windows(sums, c, len(sizes), sizes, stage)
+
+
+# -----------------------------------------------------------------------------
+# Multi-chip MSM: point shards per device, window sums combined across shards
+# -----------------------------------------------------------------------------
+
+def msm_sharded(points: list[G1Affine], scalars: list[Fr], mesh,
+                axis: str | None = None) -> G1Projective:
+    """MSM sharded over a device mesh: points and scalars split evenly
+    across the shards, each shard runs the whole bucket pipeline on its
+    slice, and the shards' window sums -- one point per window -- are
+    added on the home device.  Communication: D*W points, the Pippenger
+    partial-sum reduction."""
+    n = len(scalars)
+    if len(points) < n:
+        raise ValueError(f"{n} scalars for {len(points)} points")
+    ctx = MSMContext(points[:n], mesh.home)
+    mont = FR.to_mont_array([s.value for s in scalars], ctx.device)
+    return ctx.msm_many_mont([mont], mesh=mesh, axis=axis)[0]

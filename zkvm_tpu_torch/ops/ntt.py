@@ -151,26 +151,31 @@ class Domain:
             cur = cur * root % q
         return FR.to_mont_array_np(powers)
 
+    def factor_np(self, key: str) -> np.ndarray:
+        """A pointwise factor array on the host (Montgomery uint32 [8, n]),
+        built once: "coset" g^i, "coset_inv_scaled" g^-i * n^-1 or
+        "size_inv" n^-1."""
+        if key not in self._factors_np:
+            q = params.FR_MODULUS
+            n = self.size
+            if key == "coset":          # g^i
+                vals = self._powers(self.generator)
+            elif key == "coset_inv_scaled":  # g^{-i} * n^{-1}
+                vals = [v * self.size_inv % q
+                        for v in self._powers(self.generator_inv)]
+            elif key == "size_inv":     # n^{-1} broadcast
+                vals = [self.size_inv] * n
+            else:
+                raise KeyError(key)
+            self._factors_np[key] = FR.to_mont_array_np(vals)
+        return self._factors_np[key]
+
     def _factor(self, key: str, device: torch.device) -> torch.Tensor:
-        """Precomputed pointwise factor arrays (Montgomery form, [8, n]):
-        built on the host once, lifted once per device."""
+        """`factor_np(key)` lifted once per device."""
         dev = self._factors.get((key, device))
         if dev is None:
-            if key not in self._factors_np:
-                q = params.FR_MODULUS
-                n = self.size
-                if key == "coset":          # g^i
-                    vals = self._powers(self.generator)
-                elif key == "coset_inv_scaled":  # g^{-i} * n^{-1}
-                    vals = [v * self.size_inv % q
-                            for v in self._powers(self.generator_inv)]
-                elif key == "size_inv":     # n^{-1} broadcast
-                    vals = [self.size_inv] * n
-                else:
-                    raise KeyError(key)
-                self._factors_np[key] = FR.to_mont_array_np(vals)
             dev = self._factors[(key, device)] = lf.u32_to_tensor(
-                self._factors_np[key], device)
+                self.factor_np(key), device)
         return dev
 
     def _powers(self, base: int) -> list[int]:

@@ -185,14 +185,18 @@ class CommitKey:
         polys = [coeffs[:_degree(coeffs) + 1] for coeffs in polynomials]
         return [Commitment(r) for r in _device_ctx(self).msm_many(polys)]
 
-    def commit_many_mont(self, tensors) -> list[Commitment]:
+    def commit_many_mont(self, tensors, mesh=None,
+                         axis: str | None = None) -> list[Commitment]:
         """Commit device-resident [8, len] Montgomery coefficient tensors
-        in one MSM (the device-resident prover's commit path)."""
+        in one MSM (the device-resident prover's commit path).  With
+        `mesh`, whose home is the key's device, the MSM shards points and
+        scalars across the mesh (the multi-chip prove)."""
         for t in tensors:
             if t.shape[-1] - 1 > self.max_degree():
                 raise PolynomialDegreeTooLarge()
         return [Commitment(r)
-                for r in _device_ctx(self).msm_many_mont(list(tensors))]
+                for r in _device_ctx(self).msm_many_mont(
+                    list(tensors), mesh=mesh, axis=axis)]
 
     @staticmethod
     def compute_aggregate_witness(polynomials: list[Polynomial], point: Fr,

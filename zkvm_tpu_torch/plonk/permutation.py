@@ -9,8 +9,9 @@ device offload happens in the prover once wire vectors are device-resident.
 Counterpart of `zkvm_tpu/plonk/permutation.py`: the host half is a copy
 (the two host transforms take the device they run on), the device half is
 ported, with `jax.lax.associative_scan` of the Montgomery product replaced
-by the log-depth scan `dpoly.prefix_products`.  The product mod r is exact,
-so the grouping of the products changes no bit.
+by the log-depth scan `dpoly.prefix_products`, or on a mesh by
+`collective.sharded_scan_mul`.  The product mod r is exact, so the grouping
+of the products changes no bit.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from .. import params
 from ..fields import Fr
 from ..ops import limb_field as lf
+from ..ops.collective import sharded_scan_mul
 from ..ops.limb_field import FR
 from ..ops.ntt import Domain, _batch_inverse
 from . import dpoly
@@ -124,14 +126,17 @@ class Permutation:
     @staticmethod
     def compute_permutation_tensor(domain: Domain, wire_tensors,
                                    sigma_eval_tensors, roots_tensor,
-                                   beta: Fr, gamma: Fr):
+                                   beta: Fr, gamma: Fr, mesh=None,
+                                   axis: str | None = None):
         """Fully device-resident grand product: [8, n] Montgomery wire
         evaluation tensors in, [8, n] z tensor out (permutation.rs:181-245),
         on the wires' device.
 
         The n denominator inversions collapse to ONE host inversion via
         inv(prefix_den_i) = inv(total) * suffix_den_{i+1}: both prefix and
-        suffix products are log-depth scans on the device."""
+        suffix products are log-depth scans on the device, or with `mesh`
+        (whose home holds the wires) scans sharded over it
+        (`collective.sharded_scan_mul`)."""
         ks = (1, params.K1, params.K2, params.K3)
         dev = roots_tensor.device
         g_col = dpoly.const_col(gamma.value, dev)
@@ -148,8 +153,13 @@ class Permutation:
             num = num_t if num is None else lf.mont_mul(FR, num, num_t)
             den = den_t if den is None else lf.mont_mul(FR, den, den_t)
 
-        pnum = dpoly.prefix_products(num)
-        sden = dpoly.prefix_products(den, reverse=True)
+        if mesh is None:
+            pnum = dpoly.prefix_products(num)
+            sden = dpoly.prefix_products(den, reverse=True)
+        else:
+            mesh.axis(axis)
+            pnum = sharded_scan_mul(num, mesh)
+            sden = sharded_scan_mul(den, mesh, reverse=True)
         total = FR.from_mont_array(sden[:, :1])[0]
         inv_total = dpoly.const_col(pow(total, -1, _Q), dev)
         tail = lf.mont_mul(FR, lf.mont_mul(FR, pnum[:, :-1], sden[:, 1:]),

@@ -14,13 +14,17 @@ combination and both ruffini divisions run on the commit key's device (see
 plonk/dpoly.py).  Host work per round is only the merlin transcript
 (inherently serial, bytes-sized) and the rng blinder draws.
 
-Counterpart of `zkvm_tpu/plonk/prover.py`, single device (a mesh is not
-ported).  The reference's round programs are `jit` programs; here they are
-plain functions of the same steps (`_round_programs`), challenges and
-blinders entering as [8, k] Montgomery columns.  Every transform is a
-`Domain` method (`fft_device`, `ifft_device`, `coset_fft_device`,
-`coset_ifft_device`): the one seam through which the prover reaches the
-NTT.  The proof bytes are the reference's.
+Counterpart of `zkvm_tpu/plonk/prover.py`.  The reference's round programs
+are `jit` programs; here they are plain functions of the same steps
+(`_round_programs`), challenges and blinders entering as [8, k] Montgomery
+columns.  Every transform is a `Domain` method (`fft_device`,
+`ifft_device`, `coset_fft_device`, `coset_ifft_device`): the one seam
+through which the prover reaches the NTT.  With a mesh
+(`ops.collective.Mesh`, whose home is the commit key's device), rounds 1-3
+take the sharded set (`_mesh_round_programs`): distributed 4-step NTTs,
+cross-shard grand-product scans, the sharded quotient and sharded commit
+MSMs; rounds 4 and 5 run on the home device.  The proof bytes are the
+reference's, with a mesh or without.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch.nn.functional as F
 
 from ..fields import Fr
 from ..ops import limb_field as lf
+from ..ops.collective import Mesh, resolve_device
 from ..ops.limb_field import FR
 from ..ops.ntt import Domain
+from ..ops.ntt_sharded import DistributedDomain
 from ..utils import metrics
 from . import dpoly
 from .composer import Composer
@@ -109,6 +115,32 @@ def _pk_device(pk: ProverKey, domain: Domain, device):
     return cache
 
 
+def _blind(coeffs, b_cols):
+    """Hiding blinders of one wire or z polynomial (prover.rs:64-83)."""
+    k = b_cols.shape[-1]
+    low = lf.sub(FR, coeffs[:, :k], b_cols)
+    return torch.cat([low, coeffs[:, k:], b_cols], dim=-1)
+
+
+def _split_quotient(t_coeffs, n: int, blinders):
+    """The quotient split into four chunks, cross-blinded by the [8, 3]
+    columns (b12, b13, b14)."""
+    bcols = [blinders[:, i:i + 1] for i in range(3)]
+
+    def cross(chunk, head_b, tail_b):
+        head = (chunk[:, :1] if head_b is None else
+                lf.sub(FR, chunk[:, :1], head_b))
+        parts = [head, chunk[:, 1:]]
+        if tail_b is not None:
+            parts.append(tail_b)
+        return torch.cat(parts, dim=-1)
+
+    return (cross(t_coeffs[:, :n], None, bcols[0]),
+            cross(t_coeffs[:, n:2 * n], bcols[0], bcols[1]),
+            cross(t_coeffs[:, 2 * n:3 * n], bcols[1], bcols[2]),
+            cross(t_coeffs[:, 3 * n:4 * n + 7], bcols[2], None))
+
+
 def _round_programs(pk: ProverKey, domain: Domain, device):
     """The device part of each prover round, as plain functions over [8, k]
     Montgomery tensors on `device`, built once per key, size and device.
@@ -129,41 +161,23 @@ def _round_programs(pk: ProverKey, domain: Domain, device):
     dc = _pk_device(pk, domain, device)
     co = dc["coeff"]
 
-    def blind(coeffs, b_cols):
-        k = b_cols.shape[-1]
-        low = lf.sub(FR, coeffs[:, :k], b_cols)
-        return torch.cat([low, coeffs[:, k:], b_cols], dim=-1)
-
     def p1_wires(wires, blinders):  # wires [4, 8, n]; blinders [8, 8]
         coeffs4 = domain.ifft_device(wires)
-        return tuple(blind(coeffs4[k], blinders[:, 2 * k: 2 * k + 2])
+        return tuple(_blind(coeffs4[k], blinders[:, 2 * k: 2 * k + 2])
                      for k in range(4))
 
     def p2_z(wires, beta, gamma, blinders):  # blinders [8, 3]
         z_ev = Permutation.compute_permutation_tensor(
             domain, wires.unbind(0), dc["sigma_evals"], dc["roots"], beta,
             gamma)
-        return blind(domain.ifft_device(z_ev), blinders)
+        return _blind(domain.ifft_device(z_ev), blinders)
 
     def p3_quotient(wp, z_poly, pi_dense, challenges, blinders):
         # blinders: [8, 3] (b12, b13, b14)
         pi_coeffs = domain.ifft_device(pi_dense)
         t_coeffs = build_quotient_device(domain, pk, z_poly, wp, pi_coeffs,
                                          challenges)
-        bcols = [blinders[:, i:i + 1] for i in range(3)]
-
-        def cross(chunk, head_b, tail_b):
-            head = (chunk[:, :1] if head_b is None else
-                    lf.sub(FR, chunk[:, :1], head_b))
-            parts = [head, chunk[:, 1:]]
-            if tail_b is not None:
-                parts.append(tail_b)
-            return torch.cat(parts, dim=-1)
-
-        return (cross(t_coeffs[:, :n], None, bcols[0]),
-                cross(t_coeffs[:, n:2 * n], bcols[0], bcols[1]),
-                cross(t_coeffs[:, 2 * n:3 * n], bcols[1], bcols[2]),
-                cross(t_coeffs[:, 3 * n:4 * n + 7], bcols[2], None))
+        return _split_quotient(t_coeffs, n, blinders)
 
     # round-4 evaluation stacks: the static selector/sigma part, once
     m_z = n + 2
@@ -211,9 +225,52 @@ def _round_programs(pk: ProverKey, domain: Domain, device):
     return cache
 
 
+def _mesh_round_programs(pk: ProverKey, domain: Domain, mesh: Mesh,
+                         axis: str):
+    """The round programs of a prove over `mesh`, built once per key, size
+    and mesh.  Rounds 1-3 swap their transforms for distributed 4-step NTTs
+    (`DistributedDomain`), the grand product's scans for cross-shard scans
+    and the quotient for its sharded form, with the same steps as the
+    reference's `m1_wires`, `m2_scan` / `m2_z` and `m3_quotient`; every
+    tensor between them is global, on the mesh's home device.  Rounds 4
+    and 5 are `_round_programs`' own, on the home device, so the proof
+    bytes equal the single-device prove's by construction."""
+    caches = pk.__dict__.setdefault("_mesh_programs_cache", {})
+    key = (domain.size, mesh, axis)
+    cache = caches.get(key)
+    if cache is not None:
+        return cache
+    n = domain.size
+    rp = _round_programs(pk, domain, mesh.home)  # p4 / p5
+    dc = _pk_device(pk, domain, mesh.home)
+    ddom = DistributedDomain(n, mesh, axis)
+
+    def m1_wires(wires, blinders):
+        coeffs4 = ddom.ifft_device(wires)
+        return tuple(_blind(coeffs4[k], blinders[:, 2 * k: 2 * k + 2])
+                     for k in range(4))
+
+    def m2_z(wires, beta, gamma, blinders):
+        z_ev = Permutation.compute_permutation_tensor(
+            domain, wires.unbind(0), dc["sigma_evals"], dc["roots"], beta,
+            gamma, mesh=mesh, axis=axis)
+        return _blind(ddom.ifft_device(z_ev), blinders)
+
+    def m3_quotient(wp, z_poly, pi_dense, challenges, blinders):
+        pi_coeffs = ddom.ifft_device(pi_dense)
+        t_coeffs = build_quotient_device(domain, pk, z_poly, wp, pi_coeffs,
+                                         challenges, mesh=mesh, axis=axis)
+        return _split_quotient(t_coeffs, n, blinders)
+
+    cache = caches[key] = {**rp, "p1": m1_wires, "p2": m2_z,
+                           "p3": m3_quotient}
+    return cache
+
+
 class Prover:
     """Holds the preprocessed keys + base transcript (prover.rs:19-60).
-    It proves on the commit key's device."""
+    It proves on the commit key's device, or over a mesh whose home is
+    that device."""
 
     def __init__(self, label: bytes, prover_key: ProverKey,
                  commit_key: CommitKey, verifier_key: VerifierKey,
@@ -269,16 +326,19 @@ class Prover:
                    constraints)
 
     # -- proving (prover.rs:210-509) ----------------------------------------------
-    def prove(self, rng, circuit, mesh=None,
+    def prove(self, rng, circuit, mesh: Mesh | None = None,
               shard_axis: str | None = None) -> tuple[Proof, list[Fr]]:
-        """One proof on the commit key's device.  A mesh (the reference's
-        multi-chip prove) is not ported."""
-        if mesh is not None or shard_axis is not None:
-            raise NotImplementedError("the port proves on one device; a "
-                                      "mesh is not supported")
-        return self._prove_fast(rng, circuit)
+        """One proof on the commit key's device.  With `mesh` (whose home
+        must be that device), the heavy device work of rounds 1-3 and
+        every commit MSM shard over the mesh (`_mesh_round_programs`); the
+        proof bytes are the same either way."""
+        if mesh is None and shard_axis is not None:
+            raise ValueError("shard_axis names an axis of a mesh; no mesh "
+                             "was given")
+        return self._prove_fast(rng, circuit, mesh, shard_axis)
 
-    def _prove_fast(self, rng, circuit) -> tuple[Proof, list[Fr]]:
+    def _prove_fast(self, rng, circuit, mesh: Mesh | None = None,
+                    shard_axis: str | None = None) -> tuple[Proof, list[Fr]]:
         # witness re-synthesis (composer.rs:964) is host Python and part of
         # every proof's cost -- measured so the flagship accounting closes.
         # GC is paused for the duration: synthesis allocates ~1.4M small
@@ -300,7 +360,16 @@ class Prover:
         domain = Domain(n)
         transcript = self.transcript.clone()
         pk = self.prover_key
-        rp = _round_programs(pk, domain, dev)
+        if mesh is None:
+            axis = None
+            rp = _round_programs(pk, domain, dev)
+        else:
+            axis = mesh.axis(shard_axis)
+            if mesh.home != resolve_device(dev):
+                raise ValueError(f"the mesh's home is {mesh.home}, the "
+                                 f"prover's device is {dev}")
+            dev = mesh.home
+            rp = _mesh_round_programs(pk, domain, mesh, axis)
 
         public_inputs = composer.public_input_values()
         public_input_indexes = composer.public_input_indexes()
@@ -338,7 +407,8 @@ class Prover:
             # rng order matches blind_poly per wire: (b0, b1) a, b, c, d
             wire_polys = rp["p1"](wires, cols(blinders1))
             a_comm, b_comm, c_comm, d_comm = \
-                self.commit_key.commit_many_mont(list(wire_polys))
+                self.commit_key.commit_many_mont(list(wire_polys),
+                                                 mesh=mesh, axis=axis)
             transcript.append_commitment(b"a_comm", a_comm)
             transcript.append_commitment(b"b_comm", b_comm)
             transcript.append_commitment(b"c_comm", c_comm)
@@ -351,7 +421,8 @@ class Prover:
         with metrics.GLOBAL.span("prove/round2_permutation"):
             blinders2 = [Fr.random(rng) for _ in range(3)]
             z_poly = rp["p2"](wires, beta, gamma, cols(blinders2))
-            z_comm = self.commit_key.commit_many_mont([z_poly])[0]
+            z_comm = self.commit_key.commit_many_mont(
+                [z_poly], mesh=mesh, axis=axis)[0]
             transcript.append_commitment(b"z_comm", z_comm)
             alpha = transcript.challenge_scalar(b"alpha")
             range_sep = transcript.challenge_scalar(
@@ -371,7 +442,8 @@ class Prover:
                           (alpha, beta, gamma, range_sep, logic_sep,
                            fixed_sep, var_sep), cols(b_t))
             (t_low_comm, t_mid_comm, t_high_comm,
-             t_fourth_comm) = self.commit_key.commit_many_mont(list(t4))
+             t_fourth_comm) = self.commit_key.commit_many_mont(
+                list(t4), mesh=mesh, axis=axis)
             transcript.append_commitment(b"t_low_comm", t_low_comm)
             transcript.append_commitment(b"t_mid_comm", t_mid_comm)
             transcript.append_commitment(b"t_high_comm", t_high_comm)
@@ -470,7 +542,8 @@ class Prover:
             ]
             w_z, w_zw = rp["p5"](wire_polys, z_poly, t4, scalars)
             w_z_chall_comm, w_z_chall_w_comm = \
-                self.commit_key.commit_many_mont([w_z, w_zw])
+                self.commit_key.commit_many_mont([w_z, w_zw], mesh=mesh,
+                                                 axis=axis)
 
         proof = Proof(a_comm, b_comm, c_comm, d_comm, z_comm, t_low_comm,
                       t_mid_comm, t_high_comm, t_fourth_comm, w_z_chall_comm,

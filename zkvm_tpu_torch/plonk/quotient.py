@@ -7,11 +7,15 @@ batched coset FFT in, the numerator, a pointwise multiply by the
 precomputed Z_H^-1, a coset iFFT out.  Selector/sigma coset evaluations are
 cached on the ProverKey, per device, after the first proof.
 
-Counterpart of `zkvm_tpu/plonk/quotient.py`, single device only (the mesh
-branch is not ported).  Every transform is a `Domain` method.  The seven
-polynomials taken to the coset (a, b, c, d, z, PI and L1 alpha^2) go in
-ONE batched transform, as the reference's prover round 3 does; the values
-are those of the reference's separate transforms.
+Counterpart of `zkvm_tpu/plonk/quotient.py`.  Every transform is a `Domain`
+method, or on a mesh a `DistributedDomain` one.  The seven polynomials
+taken to the coset (a, b, c, d, z, PI and L1 alpha^2) go in ONE batched
+transform, as the reference's prover round 3 does; the values are those of
+the reference's separate transforms.  On a mesh the numerator and the
+division run shard by shard on each shard's slice of the 8n evaluation
+axis (the reference's `shard_map` pointwise step); the shifted evaluations
+are rolled on the global tensors, before the split, since the roll wraps
+across the whole axis.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..fields import Fr
 from ..ops import quotient_kernel as qk
 from ..ops.limb_field import FR
 from ..ops.ntt import Domain, _batch_inverse
+from ..ops.ntt_sharded import DistributedDomain
 from . import dpoly
 from .polynomial import Polynomial
 from .widgets import ProverKey
@@ -60,6 +65,22 @@ def _device_cache(pk: ProverKey, device):
     return cache
 
 
+def _mesh_cache(pk: ProverKey, mesh):
+    """Each shard's slice of the selector/sigma, Z_H^-1 and linear tables
+    on its device (a view where that is the home device), built once per
+    key and mesh."""
+    caches = pk.__dict__.setdefault("_mesh_cache", {})
+    cache = caches.get(mesh)
+    if cache is None:
+        sel, v_h_inv, linear = _device_cache(pk, mesh.home)
+        parts = {name: mesh.split(t) for name, t in sel.items()}
+        cache = caches[mesh] = [
+            ({name: p[i] for name, p in parts.items()}, vh, lin)
+            for i, (vh, lin) in enumerate(zip(mesh.split(v_h_inv),
+                                              mesh.split(linear)))]
+    return cache
+
+
 def _to_device_coeffs(poly: Polynomial, size: int, device) -> torch.Tensor:
     vals = [c.value for c in poly.coeffs]
     vals += [0] * (size - len(vals))
@@ -67,30 +88,38 @@ def _to_device_coeffs(poly: Polynomial, size: int, device) -> torch.Tensor:
 
 
 def build_quotient_device(domain: Domain, prover_key: ProverKey,
-                          z_dev, wires_dev, pi_dev, challenges):
+                          z_dev, wires_dev, pi_dev, challenges,
+                          mesh=None, axis: str | None = None):
     """Device-resident quotient: [8, len] Montgomery coefficient tensors in,
     [8, 8n] quotient coefficients out, on their device -- no host
-    conversion anywhere."""
+    conversion anywhere.
+
+    With `mesh` (whose home holds the tensors), the transforms run as
+    distributed 4-step NTTs and the numerator and the division shard over
+    the evaluation axis -- the multi-chip replacement for the rayon hot
+    loop at quotient_poly.rs:86-95."""
     (alpha, beta, gamma, range_ch, logic_ch, fixed_ch, var_ch) = challenges
     n = domain.size
-    domain_8n = Domain(8 * n)
-    size_8n = domain_8n.size
+    size_8n = 8 * n
     dev = z_dev.device
-    sel, v_h_inv, linear = _device_cache(prover_key, dev)
+    if mesh is None:
+        dom, dom_8n = domain, Domain(size_8n)
+    else:
+        dom = DistributedDomain(n, mesh, axis)
+        dom_8n = DistributedDomain(size_8n, mesh, axis)
 
     # L1 * alpha^2 (quotient_poly.rs:195-236), coefficients of degree < n
     alpha_sq = alpha.value * alpha.value % _Q
-    l1_coeffs = domain.ifft_device(
-        dpoly.to_device([alpha_sq], n, dev))
+    l1_coeffs = dom.ifft_device(dpoly.to_device([alpha_sq], n, dev))
 
     # ONE batched coset FFT for all seven polynomials (a, b, c, d, z, PI, L1)
     polys = tuple(wires_dev) + (z_dev, pi_dev, l1_coeffs)
     stacked = torch.stack([F.pad(p, (0, size_8n - p.shape[-1]))
                            for p in polys])  # [7, 8, 8n]
-    a8, b8, c8, d8, z8, pi8, l1_8n = domain_8n.coset_fft_device(
+    a8, b8, c8, d8, z8, pi8, l1_8n = dom_8n.coset_fft_device(
         stacked).unbind(0)
     # shifted (X*omega) accesses: +8 with wrap-around == roll by -8
-    # (quotient_poly.rs:46-59)
+    # (quotient_poly.rs:46-59), over the whole global axis
     a8w, b8w, d8w, z8w = (torch.roll(t, -8, dims=-1)
                           for t in (a8, b8, d8, z8))
 
@@ -98,11 +127,28 @@ def build_quotient_device(domain: Domain, prover_key: ProverKey,
              "var_sep")
     chals = {name: dpoly.const_col(c.value, dev)
              for name, c in zip(names, challenges)}
+    evals = (a8, b8, c8, d8, a8w, b8w, d8w, z8, z8w, pi8, l1_8n)
+    if mesh is None:
+        sel, v_h_inv, linear = _device_cache(prover_key, dev)
+        quotient = _pointwise(sel, evals, linear, v_h_inv, chals)
+    else:
+        shards = zip(_mesh_cache(prover_key, mesh), mesh.devices,
+                     *(mesh.split(t) for t in evals))
+        quotient = mesh.gather([
+            _pointwise(sel, ev, lin, vh,
+                       {k: c.to(d, non_blocking=True)
+                        for k, c in chals.items()})
+            for (sel, vh, lin), d, *ev in shards])
+    return dom_8n.coset_ifft_device(quotient)  # [8, 8n] coefficients
+
+
+def _pointwise(sel, evals, linear, v_h_inv, chals):
+    """Numerator over (a slice of) the 8n coset, divided by Z_H."""
+    a8, b8, c8, d8, a8w, b8w, d8w, z8, z8w, pi8, l1_8n = evals
     numerator = qk.quotient_numerator(
         sel, (a8, b8, c8, d8, a8w, b8w, d8w), z8, z8w, pi8, l1_8n, linear,
         chals)
-    quotient = qk.pointwise_divide(numerator, v_h_inv)
-    return domain_8n.coset_ifft_device(quotient)  # [8, 8n] coefficients
+    return qk.pointwise_divide(numerator, v_h_inv)
 
 
 def build_quotient_polynomial(domain: Domain, prover_key: ProverKey,
