@@ -29,9 +29,17 @@ Phases (any failure exits non-zero; no phase catches its own error):
      odd lanes, halves, limbs innermost) and under each of its launch
      bounds; window_fold at four sets and at one, with the time of one
      addition of its chain beside the latency of one dependent Fq product
-     in one thread (a probe kernel), which gives the chain's floor; then
-     the byte-plane matmul at its worst case (m = 256, every byte 255)
-     against an int64 product;
+     in one thread (a probe kernel), which gives the chain's floor;
+     ntt_stages (the whole staged transform, bit reversal included, in one
+     to three launches of many stages each) at every size from 2^1 to
+     2^20, batches 1, 4 and 7, both directions, with the edge values 0, 1,
+     r - 1 and R mod r, and timed at [4, 8, 2^19] and [1, 8, 2^16];
+     padd_ilp (two threads a point on the lazily reduced arithmetic)
+     against padd and the plain version at [24, 12, 32768], on p + p and
+     on every second lane read in place, and timed in turns with padd;
+     each kernel's time beside its bound and the card's name and power
+     limit; then the byte-plane matmul at its worst case (m = 256, every
+     byte 255) against an int64 product;
   4. commitment path: PublicParameters.setup(2^16) on the card (a sample of
      64 powers checked against host group arithmetic), then
      commit_many_mont of four and of one polynomial of 2^16 coefficients,
@@ -45,9 +53,11 @@ Phases (any failure exits non-zero; no phase catches its own error):
      evaluations at z -> linear combination -> division by (X - z) ->
      commit of the witness -> AggregateProof.flatten -> OpeningKey.check
      (true, and false after one evaluation is altered); the staged
-     butterfly transform and the unfused leaf reduction each redo a whole
-     2^16 transform and must equal the matmul route bit for bit; sampled
-     evaluations are checked against host big-int Horner;
+     transform (the ntt_stages kernel) and the unfused leaf reduction each
+     redo a whole 2^16 transform and must equal the matmul route bit for
+     bit; sampled evaluations are checked against host big-int Horner; the
+     staged route's host tables at 2^16 and 2^19 are built anew, timed and
+     sized;
   6. Merkle path: 4^10 seeded leaves -> PoseidonTree.from_leaves(10, ...,
      "cuda") -> root, openings (verify true, false for a wrong leaf, wire
      bytes round trip); 16 sampled nodes of every level and the root are
@@ -57,7 +67,10 @@ Phases (any failure exits non-zero; no phase catches its own error):
   7. padd comparison: the 2^16 SRS points on the card summed by a halving
      tree, once with padd and once with padd_ilp; both must equal the
      native host sum;
-  8. transform times, both routes, 1 and 4 polynomials;
+  8. transform times of both routes at the prover's own shapes: ifft of
+     [4, 8, 2^16] and [15, 8, 2^16], coset fft and ifft of [7, 8, 2^19]
+     and [16, 8, 2^19], coset ifft of [8, 2^19] (device and wall time,
+     peak memory, each pair bit for bit equal);
      with --profile, also where the device time goes (torch.profiler);
   9. the dryrun prove: PublicParameters.setup(2^11, StdRng(42), "cuda"),
      Compiler.compile_with_circuit of the height-1 opening circuit with the
@@ -108,7 +121,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
  14. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
-     whole-transform cross-checks (the only callers of butterfly and fold),
+     whole-transform cross-checks (the only callers of ntt_stages and fold),
      the Merkle path, the padd comparison, one warm flagship prove, the
      mesh (one warm mesh prove and one run of each mesh component) and the
      first service run (compile and 32 proves), reported apart.
@@ -212,8 +225,8 @@ KERNELS = {
              "zkvm_tpu/ops/pallas_field.py:497"),
     "window_fold": ("zkvm_tpu_torch/csrc/window_fold.cu",
                     "zkvm_tpu/ops/pallas_field.py:726"),
-    "butterfly": ("zkvm_tpu_torch/csrc/butterfly.cu",
-                  "zkvm_tpu/ops/pallas_field.py:676"),
+    "ntt_stages": ("zkvm_tpu_torch/csrc/ntt.cu",
+                   "zkvm_tpu/ops/pallas_field.py:676"),
     "carry_fold": ("zkvm_tpu_torch/csrc/ntt_fold.cu",
                    "zkvm_tpu/ops/ntt_mxu.py:199"),
     "fold": ("zkvm_tpu_torch/csrc/ntt_fold.cu",
@@ -227,7 +240,7 @@ KERNELS = {
 }
 # how the port's CUDA kernels are named in a profile
 OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
-               "padd_ilp_kernel", "window_fold_kernel", "butterfly_kernel",
+               "padd_ilp_kernel", "window_fold_kernel", "ntt_pass_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
                "field_addsub_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
@@ -396,7 +409,15 @@ def phase_parity(rng, dev) -> dict:
     err = max(err, max_abs_err(got, want_plain))
     err_ilp = max(err_ilp, max_abs_err(got_ilp, want_plain),
                   max_abs_err(got_ilp, got))
-    del want_plain, got, got_ilp
+    # p + p (every doubling of the MSM) and every second lane read in place
+    twice = kernels.padd(p, p)
+    err_ilp = max(err_ilp, max_abs_err(kernels.padd_ilp(p, p), twice),
+                  max_abs_err(kernels.padd_ilp(p, p),
+                              kernels.padd_plain(p, p)))
+    even, odd = (tuple(t[..., k::2] for t in p) for k in (0, 1))
+    err_ilp = max(err_ilp, max_abs_err(kernels.padd_ilp(even, odd),
+                                       kernels.padd(even, odd)))
+    del want_plain, got, got_ilp, twice, even, odd
     # the function needs 12 Montgomery products a lane (the two by the
     # constant 3b are additions), whichever kernel computes it; in turns:
     # padd, padd_ilp, padd_ilp, padd
@@ -489,11 +510,13 @@ def phase_parity(rng, dev) -> dict:
     phase_parity_ntt(rng, dev, rec)
     phase_parity_hades(rng, dev, rec)
 
+    card = card_line()
     for name, r in rec.items():
         log(f"parity {name}: max_abs_err={r['max_abs_err']} (tolerance 0: "
             f"bit for bit), kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
-            f"{r['bound_by']}, at {r['shape']}")
+            f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of it), at "
+            f"{r['shape']}; {card}")
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err={r['max_abs_err']})")
@@ -753,46 +776,73 @@ def byte_columns(rng, lanes: int) -> np.ndarray:
     return d
 
 
-def phase_parity_ntt(rng, dev, rec) -> None:
-    """butterfly, carry_fold and fold against their plain versions."""
-    rinv = pow(1 << 256, -1, Q)
+NTT_STAGES_SIZES = range(1, 21)   # 2^1 .. 2^20: one, two and three passes
+NTT_STAGES_BATCHES = (1, 4, 7)
+# timed: the coset fft of four polynomials at 2^19 (the record's shape), one
+# polynomial at 2^16
+NTT_STAGES_TIMED = ((4, 19), (1, 16))
 
-    # -- butterfly: edge lanes on a ragged batch (CPU plain): zeros, ones,
-    # r - 1, a sum >= r (lane 3: e = r - 1, t = 1) and a difference < 0
-    # (lane 4: e = 0, t = 1)
-    e = rand_field(FR, (8, 4099), rng)
-    o = rand_field(FR, (8, 4099), rng)
-    w = rand_field(FR, (8, 4099), rng)
-    set_lanes(e, FR, [0, 1, Q - 1, Q - 1, 0, 5, Q - 1])
-    set_lanes(o, FR, [0, 1, Q - 1, rinv, rinv, 0, Q - 1])
-    set_lanes(w, FR, [7, 1, Q - 1, FR.R, FR.R, 3, 1])
-    te, to, tw = (lf.u32_to_tensor(t, "cpu") for t in (e, o, w))
-    got = kernels.butterfly(te.to(dev), to.to(dev), tw.to(dev))
-    err = max_abs_err(got, kernels.butterfly_plain(te, to, tw))
-    # a [3, 8, B] batch with one shared [8, B] twiddle table
-    be = lf.u32_to_tensor(rand_field(FR, (3, 8, 1027), rng), "cpu")
-    bo = lf.u32_to_tensor(rand_field(FR, (3, 8, 1027), rng), "cpu")
-    bw = lf.u32_to_tensor(rand_field(FR, (8, 1027), rng), "cpu")
-    got = kernels.butterfly(be.to(dev), bo.to(dev), bw.to(dev))
-    err = max(err, max_abs_err(got, kernels.butterfly_plain(be, bo, bw)))
-    # slice shapes: one stage of a 2^16 and of a 2^19 transform
-    for lanes in (N // 2, N8 // 2):
-        e, o, w = (lf.u32_to_tensor(rand_field(FR, (8, lanes), rng), dev)
-                   for _ in range(3))
-        err = max(err, max_abs_err(kernels.butterfly(e, o, w),
-                                   kernels.butterfly_plain(e, o, w)))
-        ms = cuda_ms(lambda: kernels.butterfly(e, o, w), 50)
-        plain_ms = cuda_ms(lambda: kernels.butterfly_plain(e, o, w), 3)
-        b = bound(5 * e.numel() * 4, mont_mul_ops(8) * lanes)
-        if lanes == N // 2:
-            rec["butterfly"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms,
-                                    shape=f"[8, {lanes}]", **b)
-        else:
-            log(f"butterfly at [8, {lanes}]: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by "
-                f"{b['bound_by']}")
-    rec["butterfly"]["max_abs_err"] = err
+
+def ntt_products(rows: int, log_n: int) -> int:
+    """Fr products one staged transform needs: n/2 butterflies a stage,
+    less the n - 1 a row whose twiddle is tw[0] = 1 (every butterfly of
+    stage 0, half of stage 1's, ...)."""
+    n = 1 << log_n
+    return rows * ((n // 2) * log_n - (n - 1))
+
+
+def phase_parity_ntt(rng, dev, rec) -> None:
+    """ntt_stages, carry_fold and fold against their plain versions."""
+
+    # -- ntt_stages: every size from 2^1 to 2^20 (below one tile, two and
+    # three passes), batches 1, 4 and 7, both directions, the first lanes
+    # of each batch at the edge values 0, 1, r - 1 and R mod r; against the
+    # plain version and the matmul route (`Domain._run`) on the card
+    err, passes = 0, {}
+    for log_n in NTT_STAGES_SIZES:
+        dom = ntt.Domain(1 << log_n)
+        tables = dom._butterfly_tables(dev)
+        for rows in NTT_STAGES_BATCHES:
+            x = rand_field(FR, (rows, 8, dom.size), rng)
+            for g in range(rows):
+                set_lanes(x[g], FR, [0, 1, Q - 1, FR.R % Q][:dom.size])
+            x = lf.u32_to_tensor(x, dev)
+            for inverse, tw in zip((False, True), tables):
+                before = kernels.LAUNCHES["ntt_stages"]
+                got = kernels.ntt_stages(x, tw)
+                passes[log_n] = kernels.LAUNCHES["ntt_stages"] - before
+                err = max(err, max_abs_err(got,
+                                           kernels.ntt_stages_plain(x, tw)),
+                          max_abs_err(got, dom._run(x, inverse)))
+            del x, got
+    log("ntt_stages against its plain version and the matmul route at 2^1 "
+        ".. 2^20, batches 1, 4, 7, both directions: max_abs_err " + str(err)
+        + "; launches a transform by size: "
+        + ", ".join(f"2^{k} {v}" for k, v in passes.items()))
+    # slice shapes: the coset fft of four polynomials at 2^19, one at 2^16
+    card = card_line()
+    for rows, log_n in NTT_STAGES_TIMED:
+        x = lf.u32_to_tensor(rand_field(FR, (rows, 8, 1 << log_n), rng), dev)
+        tw = ntt.Domain(1 << log_n)._butterfly_tables(dev)[0]
+        before = kernels.LAUNCHES["ntt_stages"]
+        got = kernels.ntt_stages(x, tw)
+        passes[log_n] = kernels.LAUNCHES["ntt_stages"] - before
+        err = max(err, max_abs_err(got, kernels.ntt_stages_plain(x, tw)))
+        ms = cuda_ms(lambda: kernels.ntt_stages(x, tw), 20)
+        ms = (ms + cuda_ms(lambda: kernels.ntt_stages(x, tw), 20)) / 2
+        plain_ms = cuda_ms(lambda: kernels.ntt_stages_plain(x, tw), 1)
+        b = bound((2 * x.numel() + tw.numel()) * 4,
+                  ntt_products(rows, log_n) * mont_mul_ops(8))
+        log(f"ntt_stages at [{rows}, 8, 2^{log_n}] ({passes[log_n]} "
+            f"launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} "
+            f"({b['bound_ms'] / ms:.3f} of it); {card}")
+        if (rows, log_n) == NTT_STAGES_TIMED[0]:
+            rec["ntt_stages"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     shape=f"[{rows}, 8, 2^{log_n}]",
+                                     launches_a_transform=passes[log_n], **b)
+        del x
+    rec["ntt_stages"]["max_abs_err"] = err
 
     # -- carry_fold: ragged batch with every column at 2^24 - 1, zeros, and
     # single columns (CPU plain); lanes 3 and 4 at the matmul route's
@@ -1205,6 +1255,23 @@ def horner(coeffs: list[int], x: int) -> int:
     return acc
 
 
+def staged_route_tables(dev) -> None:
+    """The staged route's tables (the two twiddle tables) at 2^16 and 2^19,
+    built anew: the build's host seconds (tables on the card, synchronised)
+    and the bytes kept on the host and on the card."""
+    for n in (N, N8):
+        dom = ntt.Domain(n)
+        dom._butterfly_np, dom._butterfly = None, {}
+        t0 = time.perf_counter()
+        tables = dom._butterfly_tables(dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kept = sum(t.numel() * 4 for t in tables)
+        log(f"staged route tables at 2^{n.bit_length() - 1}: built in "
+            f"{build_s:.4f} s, {kept / 2**20:.3f} MiB kept on the host and "
+            f"as much on the card")
+
+
 def poly_path(ck, ok, evals, rng_seed: int, z: Fr, v: Fr) -> dict:
     """The polynomial path of a prover round through the port's entry
     points; everything stays on the card but the transcript scalars and
@@ -1252,13 +1319,10 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     ntt.Domain(N8)._factor("coset", dev)
     ntt.Domain(N8)._factor("coset_inv_scaled", dev)
     out["factor_tables_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ntt.Domain(N)._butterfly_tables(dev)
-    out["butterfly_tables_s"] = time.perf_counter() - t0
     log(f"host tables: matmul route 2^16 + 2^19, forward and inverse "
         f"{out['mxu_tables_s']:.3f} s; coset and 1/n factors "
-        f"{out['factor_tables_s']:.3f} s; staged butterfly 2^16 "
-        f"{out['butterfly_tables_s']:.3f} s")
+        f"{out['factor_tables_s']:.3f} s")
+    staged_route_tables(dev)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -1353,7 +1417,7 @@ def phase_poly(rng, dev, ck, ok) -> dict:
 
     require_launched(launches, ("mont_mul", "padd", "window_fold",
                                 "carry_fold"), "polynomial path")
-    require_launched(crosscheck, ("mont_mul", "butterfly", "carry_fold",
+    require_launched(crosscheck, ("mont_mul", "ntt_stages", "carry_fold",
                                   "fold"), "whole-transform cross-checks")
     out["launches"] = launches
     out["crosscheck"] = crosscheck
@@ -1599,48 +1663,59 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def phase_times(rng, dev) -> None:
-    """Transform times, warm, both routes, 1 and 4 polynomials: device time
-    (CUDA events, launches back to back) and wall time (host clock,
-    synchronised: what a caller waits, Python's enqueueing included); the
-    dpoly functions and the int64 add/sub glue at 2^16; peak memory."""
-    def butterfly_route(dom, name):
-        def run(x):
-            if name == "coset_fft":
-                x = ntt._scale(x, dom._factor("coset", dev))
-            y = ntt.butterfly_transform(dom, x, inverse=name == "coset_ifft")
-            if name == "coset_ifft":
-                y = ntt._scale(y, dom._factor("coset_inv_scaled", dev))
-            return y
-        return run
+# the transforms of a prove and of a compile at the flagship's sizes (2^16
+# gates, 8n = 2^19): (transform, rows, log2 n, call site in plonk/)
+PROVER_TRANSFORMS = (
+    ("ifft", 4, 16, "prover.py:165"), ("ifft", 15, 16, "compiler.py:99"),
+    ("coset_fft", 7, 19, "quotient.py:119"),
+    ("coset_ifft", 7, 19, "quotient.py:119, inverse"),
+    ("coset_ifft", 1, 19, "quotient.py:144"),
+    ("coset_fft", 16, 19, "compiler.py:134"),
+    ("coset_ifft", 16, 19, "compiler.py:134, inverse"))
 
-    for size, names in ((1 << 14, ("fft",)), (N, ("fft",)),
-                        (N8, ("coset_fft", "coset_ifft"))):
-        dom = ntt.Domain(size)
-        t0 = time.perf_counter()
-        dom._butterfly_tables(dev)
-        for root in (dom.group_gen, dom.group_gen_inv):
-            ntt_mxu.MXUTransform(size, root)
-        tables_s = time.perf_counter() - t0
-        for batch in (1, 4):
-            x = lf.u32_to_tensor(rand_field(FR, (batch, 8, size), rng), dev)
-            for name in names:
-                mxu = getattr(dom, name + "_device")
-                bfly = butterfly_route(dom, name)
-                if not torch.equal(mxu(x), bfly(x)):
-                    raise AssertionError(f"routes disagree: {name} 2^"
-                                         f"{size.bit_length() - 1} x {batch}")
-                reps = 3 if size == N8 else 10
-                line = f"time {name} 2^{size.bit_length() - 1} x {batch}:"
-                for route, fn in (("matmul", mxu), ("butterfly", bfly)):
-                    torch.cuda.reset_peak_memory_stats()
-                    dev_ms = cuda_ms(lambda: fn(x), reps)
-                    wall_ms = host_ms(lambda: fn(x), reps)
-                    peak = torch.cuda.max_memory_allocated() / 2**30
-                    line += (f" {route} route device {dev_ms:.4f} ms, wall "
-                             f"{wall_ms:.4f} ms, peak {peak:.3f} GiB;")
-                log(f"{line} remaining host tables {tables_s:.3f} s")
-            del x
+
+def staged_route(dom, name: str, dev):
+    """`dom`'s transform `name` (ifft, coset_fft or coset_ifft) by the
+    staged route: `ntt.butterfly_transform` and the same scalings as the
+    Domain's own transforms."""
+    def run(x):
+        if name == "coset_fft":
+            x = ntt._scale(x, dom._factor("coset", dev))
+        y = ntt.butterfly_transform(dom, x, inverse=name != "coset_fft")
+        if name == "ifft":
+            y = ntt._scale(y, dom._factor("size_inv", dev))
+        elif name == "coset_ifft":
+            y = ntt._scale(y, dom._factor("coset_inv_scaled", dev))
+        return y
+    return run
+
+
+def phase_times(rng, dev) -> None:
+    """Both routes at the prover's own transform shapes (PROVER_TRANSFORMS),
+    in the same call: device time (CUDA events, launches back to back),
+    wall time (host clock, synchronised: what a caller waits, Python's
+    enqueueing included) and peak memory; each pair must agree bit for bit.
+    Then the dpoly functions and the field_addsub glue at 2^16."""
+    card = card_line()
+    for name, rows, log_n, site in PROVER_TRANSFORMS:
+        dom = ntt.Domain(1 << log_n)
+        x = lf.u32_to_tensor(rand_field(FR, (rows, 8, dom.size), rng), dev)
+        routes = (("matmul", getattr(dom, name + "_device")),
+                  ("staged", staged_route(dom, name, dev)))
+        if not torch.equal(routes[0][1](x), routes[1][1](x)):
+            raise AssertionError(f"routes disagree: {name} [{rows}, 8, "
+                                 f"2^{log_n}]")
+        reps = 3 if rows * dom.size > 1 << 21 else 10
+        line = f"time {name} [{rows}, 8, 2^{log_n}] ({site}):"
+        for route, fn in routes:
+            torch.cuda.reset_peak_memory_stats()
+            dev_ms = cuda_ms(lambda: fn(x), reps)
+            wall_ms = host_ms(lambda: fn(x), reps)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            line += (f" {route} route device {dev_ms:.4f} ms, wall "
+                     f"{wall_ms:.4f} ms, peak {peak:.3f} GiB;")
+        log(f"{line} {card}")
+        del x
 
     z = Fr(0x1F2E3D4C5B6A79880123456789ABCDEF)
     c = lf.u32_to_tensor(rand_field(FR, (8, N + 2), rng), dev)
@@ -2186,9 +2261,8 @@ def phase_profile(rng, dev, ck, ok) -> None:
     x = lf.u32_to_tensor(rand_field(FR, (4, 8, N8), rng), dev)
     profiled("coset_fft 2^19 x 4, matmul route",
              lambda: dom8.coset_fft_device(x))
-    profiled("coset_fft 2^19 x 4, butterfly route",
-             lambda: ntt.butterfly_transform(
-                 dom8, ntt._scale(x, dom8._factor("coset", dev))))
+    profiled("coset_fft 2^19 x 4, staged route",
+             lambda: staged_route(dom8, "coset_fft", dev)(x))
     del x
 
     def field(spec, shape):
@@ -2197,8 +2271,9 @@ def phase_profile(rng, dev, ck, ok) -> None:
     a, b = field(FQ, (12, N + 7)), field(FQ, (12, N + 7))
     p = tuple(field(FQ, (24, 12, N // 2)) for _ in range(3))
     q = tuple(field(FQ, (24, 12, N // 2)) for _ in range(3))
-    e, o, w = (field(FR, (8, N // 2)) for _ in range(3))
-    e8, o8, w8 = (field(FR, (8, N8 // 2)) for _ in range(3))
+    x16, x19 = field(FR, (1, 8, N)), field(FR, (4, 8, N8))
+    tw16 = ntt.Domain(N)._butterfly_tables(dev)[0]
+    tw19 = ntt.Domain(N8)._butterfly_tables(dev)[0]
     d1 = torch.from_numpy(byte_columns(rng, N)).to(dev)
     d4 = torch.from_numpy(byte_columns(rng, 4 * N8)).to(dev)
     fv = field(FR, (8, N))
@@ -2225,8 +2300,8 @@ def phase_profile(rng, dev, ck, ok) -> None:
             ("padd_ilp [24, 12, 32768]", lambda: kernels.padd_ilp(p, q)),
             (f"hades_permute [5, 8, {HADES_LANES}]",
              lambda: kernels.hades_permute(st, consts)),
-            ("butterfly [8, 2^15]", lambda: kernels.butterfly(e, o, w)),
-            ("butterfly [8, 2^18]", lambda: kernels.butterfly(e8, o8, w8)),
+            ("ntt_stages [1, 8, 2^16]", lambda: kernels.ntt_stages(x16, tw16)),
+            ("ntt_stages [4, 8, 2^19]", lambda: kernels.ntt_stages(x19, tw19)),
             ("carry_fold [68, 2^16]", lambda: kernels.carry_fold(d1)),
             ("carry_fold [68, 2^21]", lambda: kernels.carry_fold(d4)),
             ("fold [17, 2^16]", lambda: kernels.fold(fv))):

@@ -294,15 +294,17 @@ def test_setup_and_commit_on_card(cuda):
     assert got.point.to_bytes() == want.to_affine().to_bytes()
 
 
-@pytest.mark.parametrize("lead,shared", [((), False), ((3,), True),
-                                         ((2, 2), False)])
-def test_butterfly_kernel_matches_plain(cuda, lead, shared):
-    shape = lead + (8, 1027)
-    even, odd = _field(lf.FR, shape, 12), _field(lf.FR, shape, 13)
-    tw = _field(lf.FR, (8, 1027) if shared else shape, 14)
-    got = kernels.butterfly(even.to(cuda), odd.to(cuda), tw.to(cuda))
-    for g, w in zip(got, kernels.butterfly_plain(even, odd, tw)):
-        assert torch.equal(g.cpu(), w)
+@pytest.mark.parametrize("log_n,lead", [(1, ()), (9, (3,)), (10, (2, 2)),
+                                       (13, (3,)), (16, (1,))])
+def test_butterfly_kernel_matches_plain(cuda, log_n, lead):
+    """The staged transform (`ntt_stages`: one pass at 2^9 and 2^10, two at
+    2^13, three at 2^16), both directions, against its plain version."""
+    from zkvm_tpu_torch.ops import ntt
+
+    x = _field(lf.FR, lead + (8, 1 << log_n), 12)
+    for tw in ntt.Domain(1 << log_n)._butterfly_tables(torch.device("cpu")):
+        got = kernels.ntt_stages(x.to(cuda), tw.to(cuda))
+        assert torch.equal(got.cpu(), kernels.ntt_stages_plain(x, tw))
 
 
 def _columns(seed, lanes):

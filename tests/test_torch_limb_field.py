@@ -20,7 +20,6 @@ import pytest
 import torch
 
 import zkvm_tpu.ops.limb_field as rlf
-from zkvm_tpu import params
 from zkvm_tpu.ops import pallas_field
 from zkvm_tpu_torch.ops import kernels
 from zkvm_tpu_torch.ops import limb_field as lf
@@ -319,5 +318,7 @@ def test_cuda_constants_match_params():
                         text, re.S).group(1)
         assert int(np0, 16) == spec.nprime
     assert _cuh_array(text, "Fq", "one") == list(lf.FQ.one_mont)
-    assert _cuh_array(text, "Fq", "b3") == list(
-        lf.FQ.mont_limbs(3 * params.G1_B))
+    # the split-fold constants (3b went with the last fully reduced G1
+    # addition; the lazy kernels take 12 t as four additions)
+    assert _cuh_array(text, "Fr", "k1") == list(kernels.K1)
+    assert _cuh_array(text, "Fr", "k2") == list(kernels.K2)

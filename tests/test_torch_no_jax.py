@@ -173,6 +173,22 @@ def test_the_grep_covers_the_mesh_modules():
             "zkvm_tpu_torch/utils/dryrun.py", "chip_smoke.py"} <= names
 
 
+def test_the_kernel_sources_are_the_built_ones():
+    """Every CUDA source of the port is one the library is built from (and
+    includes no header but the port's own and the toolkit's)."""
+    csrc = ROOT / "zkvm_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(
+        kernels._SOURCES)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
+        kernels._HEADERS)
+    for path in csrc.iterdir():
+        for inc in re.findall(r'^#include [<"]([^>"]+)[>"]', path.read_text(),
+                              re.M):
+            assert inc in kernels._HEADERS or inc in ("cstdint",
+                                                      "cuda_runtime.h"), (
+                path.name, inc)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_source_imports_no_jax(path):
     text = path.read_text()

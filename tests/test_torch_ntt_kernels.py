@@ -1,6 +1,7 @@
-"""The plain versions of the butterfly, carry_fold and fold kernels against
-the Pallas kernels they replace (interpret mode) and host big ints, and the
-matmul NTT's tables and byte-column tensor against the reference's.
+"""The plain versions of the butterfly stage (of which the ntt_stages kernel
+runs many a launch), carry_fold and fold against the Pallas kernels they
+replace (interpret mode) and host big ints, and the matmul NTT's tables and
+byte-column tensor against the reference's.
 
 Inputs are numpy-seeded; everything is exact integer arithmetic, so the
 tolerance is zero: bit for bit after `to_reference`.  Each Pallas kernel is
@@ -50,8 +51,8 @@ def test_butterfly_plain_matches_pallas_interpret():
     plus, minus = pallas_field.butterfly_pallas(
         jnp.asarray(even), jnp.asarray(odd), jnp.asarray(tw), block=256,
         interpret=True)
-    got = kernels.butterfly(*(lf.from_reference(a, FR, "cpu")
-                              for a in (even, odd, tw)))
+    got = kernels.butterfly_plain(*(lf.from_reference(a, FR, "cpu")
+                                    for a in (even, odd, tw)))
     assert (lf.to_reference(got[0], FR) == np.asarray(plus)).all()
     assert (lf.to_reference(got[1], FR) == np.asarray(minus)).all()
 
@@ -66,7 +67,7 @@ def test_butterfly_shared_twiddles_match_per_lane(lead):
     even, odd = (lf.u32_to_tensor(_rand_limbs(rng, shape), "cpu")
                  for _ in range(2))
     tw = lf.u32_to_tensor(_rand_limbs(rng, (8, n)), "cpu")
-    plus, minus = kernels.butterfly(even, odd, tw)
+    plus, minus = kernels.butterfly_plain(even, odd, tw)
     t = lf.mont_mul(FR, odd, tw.expand(shape))
     assert torch.equal(plus, lf.add(FR, even, t))
     assert torch.equal(minus, lf.sub(FR, even, t))
@@ -235,10 +236,16 @@ def test_new_wrappers_refuse_wrong_operands():
     with pytest.raises(ValueError):
         kernels.fold(torch.zeros((16, 4), dtype=torch.int32))
     limbs = torch.zeros((8, 4), dtype=torch.int32)
+    table = torch.zeros((8, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="twiddle table"):
+        kernels.ntt_stages(limbs, torch.zeros((8, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
-        kernels.butterfly(limbs, limbs, torch.zeros((8, 5),
-                                                    dtype=torch.int32))
-    with pytest.raises(ValueError):
-        kernels.butterfly(limbs.to("meta"), limbs.to("meta"),
-                          limbs.to("meta"))
+        kernels.ntt_stages(limbs.to("meta"), table.to("meta"))
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.ntt_stages(torch.zeros((8, 6), dtype=torch.int32), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.ntt_stages(torch.zeros((8, 8), dtype=torch.int32)[:, ::2],
+                           table)
+    with pytest.raises(TypeError):
+        kernels.ntt_stages(limbs.to(torch.int64), table)
     assert kernels.carry_fold(good[:, :0].contiguous()).shape == (8, 0)

@@ -111,9 +111,16 @@ def test_padd_ilp_wrapper_checks_its_operands(pq):
     _, _, (_, pp), (_, pq_) = pq
     with pytest.raises(ValueError):
         kernels.padd_ilp(pp, tuple(t[:, :5].contiguous() for t in pq_))
-    with pytest.raises(ValueError, match="contiguous"):
-        kernels.padd_ilp(tuple(t[:, ::2] for t in pp),
-                         tuple(t[:, ::2] for t in pq_))
+    # every second lane is read in place; coordinates of one point with
+    # different layouts are not
+    got = kernels.padd_ilp(tuple(t[:, ::2] for t in pp),
+                           tuple(t[:, ::2] for t in pq_))
+    want = kernels.padd_plain(tuple(t[:, ::2].contiguous() for t in pp),
+                              tuple(t[:, ::2].contiguous() for t in pq_))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    mixed = (pp[0], pp[1].T.contiguous().T, pp[2])
+    with pytest.raises(ValueError, match="share one layout"):
+        kernels.padd_ilp(mixed, pq_)
     with pytest.raises(ValueError):
         kernels.padd_ilp(tuple(t.to("meta") for t in pp),
                          tuple(t.to("meta") for t in pq_))

@@ -1,6 +1,6 @@
 // Device arithmetic over the BLS12-381 scalar field Fr (8 x 32-bit limbs)
-// and base field Fq (12 x 32-bit limbs), the complete G1 addition, and the
-// split-fold reduction of the matmul NTT.
+// and base field Fq (12 x 32-bit limbs), and the split-fold reduction of the
+// matmul NTT.
 //
 // Elements are little-endian uint32 limbs in Montgomery form with
 // R = 2^(32 N), held in registers.  Every function returns a fully reduced
@@ -11,9 +11,9 @@
 //
 // The kernels that use these functions are bounded by 32-bit integer
 // multiply throughput (IMAD/IMAD.HI, two per limb product) and by register
-// pressure: one Fq product keeps ~40 words live, a G1 addition ~150.  This
-// first version is the plain CIOS schedule with 64-bit products; making it
-// faster (ILP across lanes, fewer live registers) is later work.
+// pressure: one Fq product keeps ~40 words live.  This is the plain CIOS
+// schedule with 64-bit products; the kernels that were designed again for
+// the card use the carry-flag arithmetic of fq_lazy.cuh and fr_lazy.cuh.
 #pragma once
 
 #include <cstdint>
@@ -61,14 +61,6 @@ struct Fq {
                                0xebf4000b, 0x53c758ba, 0x5f489857,
                                0x70525745, 0x77ce5853, 0xa256ec6d,
                                0x5c071a97, 0xfa80e493, 0x15f65ec3};
-    return v[i];
-  }
-  // 3 * b = 12 in Montgomery form (the RCB15 constant for a = 0, b = 4)
-  __device__ __forceinline__ static uint32_t b3(int i) {
-    constexpr uint32_t v[N] = {0x0027552e, 0x44760000, 0x43480020,
-                               0xdcb8009a, 0x4a6e8b59, 0x6f7ee9ce,
-                               0xc0a95bc6, 0xb10330b7, 0xfb1e54b7,
-                               0x6140b1fc, 0x7f0bb4e1, 0x0381be09};
     return v[i];
   }
 };
@@ -191,67 +183,6 @@ __device__ __forceinline__ void split_fold(uint32_t* r, const uint32_t* v) {
   hi[0] = v[2 * N];
   mont_mul<Fr>(t, hi, k);
   add<Fr>(r, lo, t);
-}
-
-// ---- G1 (homogeneous projective over Fq, Montgomery coordinates) ----------
-
-struct G1 {
-  uint32_t x[Fq::N], y[Fq::N], z[Fq::N];
-};
-
-__device__ __forceinline__ void g1_identity(G1& o) {
-#pragma unroll
-  for (int j = 0; j < Fq::N; ++j) {
-    o.x[j] = 0;
-    o.y[j] = Fq::one(j);
-    o.z[j] = 0;
-  }
-}
-
-// o = p + q: complete RCB15 addition (Renes-Costello-Batina 2015,
-// algorithm 7, a = 0), in the formula order of the reference's
-// `_padd_vals`.  Identity operands and p == q need no special case.  o may
-// alias p or q.
-__device__ __forceinline__ void g1_add(G1& o, const G1& p, const G1& q) {
-  constexpr int N = Fq::N;
-  uint32_t t0[N], t1[N], t2[N], t3[N], t4[N], t5[N], a[N], b[N];
-  uint32_t b3[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) b3[j] = Fq::b3(j);
-  mont_mul<Fq>(t0, p.x, q.x);
-  mont_mul<Fq>(t1, p.y, q.y);
-  mont_mul<Fq>(t2, p.z, q.z);
-  add<Fq>(a, p.x, p.y);
-  add<Fq>(b, q.x, q.y);
-  mont_mul<Fq>(t3, a, b);
-  sub<Fq>(t3, t3, t0);
-  sub<Fq>(t3, t3, t1);
-  add<Fq>(a, p.y, p.z);
-  add<Fq>(b, q.y, q.z);
-  mont_mul<Fq>(t4, a, b);
-  sub<Fq>(t4, t4, t1);
-  sub<Fq>(t4, t4, t2);
-  add<Fq>(a, p.x, p.z);
-  add<Fq>(b, q.x, q.z);
-  mont_mul<Fq>(t5, a, b);
-  sub<Fq>(t5, t5, t0);
-  sub<Fq>(t5, t5, t2);
-  uint32_t z3[N], y3[N], t03[N];
-  mont_mul<Fq>(a, t2, b3);  // t6
-  add<Fq>(z3, t1, a);
-  sub<Fq>(t1, t1, a);
-  mont_mul<Fq>(y3, t5, b3);
-  add<Fq>(t03, t0, t0);
-  add<Fq>(t03, t03, t0);
-  mont_mul<Fq>(a, t3, t1);
-  mont_mul<Fq>(b, t4, y3);
-  sub<Fq>(o.x, a, b);
-  mont_mul<Fq>(a, t1, z3);
-  mont_mul<Fq>(b, y3, t03);
-  add<Fq>(o.y, a, b);
-  mont_mul<Fq>(a, z3, t4);
-  mont_mul<Fq>(b, t03, t3);
-  add<Fq>(o.z, a, b);
 }
 
 }  // namespace zk

@@ -1,8 +1,8 @@
 // Carry-flag arithmetic over the BLS12-381 scalar field Fr for the Hades
-// permutation (hades.cu) and the Fr chain of mont_mul.cu: the Montgomery
-// product, the Montgomery DOT product that one row of the MDS matrix is, and
-// the few reductions around them.  The other kernels keep field.cuh's
-// functions.
+// permutation (hades.cu), the staged NTT (ntt.cu) and the Fr chain of
+// mont_mul.cu: the Montgomery product, the Montgomery DOT product that one
+// row of the MDS matrix is, and the few reductions and modular additions
+// around them.  The other kernels keep field.cuh's functions.
 //
 // What the card offers a 256-bit carry chain is its carry flag and its
 // register file (see fq_lazy.cuh, whose schedule this follows): operand
@@ -201,6 +201,16 @@ __device__ __forceinline__ void reduce_r(uint32_t* x) {
 __device__ __forceinline__ void add_r(uint32_t* x, const uint32_t* c) {
   add8(x, c);
   reduce_r(x);
+}
+
+// x = x - c mod r for canonical x and c, canonical: r is added back after a
+// borrow, and the carry out of that addition cancels the borrow.
+__device__ __forceinline__ void sub_r(uint32_t* x, const uint32_t* c) {
+  const uint32_t borrow = sub8(x, c);
+  uint32_t k[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) k[i] = Fr::p(i) & borrow;
+  add8(x, k);
 }
 
 // t (nine words) = (sum_j a(j) b_j) / 2^256 mod r, NOT reduced:

@@ -41,9 +41,10 @@ def padd(p, q):
 
 def padd_ilp(p, q):
     """The same addition by the grouped kernel (`kernels.padd_ilp`: two
-    threads a point); bit-identical to `padd`, which stays the default."""
-    return kernels.padd_ilp(tuple(t.contiguous() for t in p),
-                            tuple(t.contiguous() for t in q))
+    threads a point), strided operands read in place as `padd` reads them;
+    bit-identical to `padd`, which stays the default."""
+    (p, lp), (q, lq) = _in_place(tuple(p)), _in_place(tuple(q))
+    return kernels.padd_ilp(p, q, (lp, lq))
 
 
 def sum_lanes(t, add=padd):

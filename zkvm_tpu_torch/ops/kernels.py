@@ -10,7 +10,10 @@ Ten kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
   * `padd`         replaces `pallas_field.padd_pallas_2l` (reads strided
                    operands in place)
   * `window_fold`  replaces `pallas_field.window_fold_pallas`
-  * `butterfly`    replaces `pallas_field.butterfly_pallas`
+  * `ntt_stages`   replaces `pallas_field.butterfly_pallas`, which the
+                   reference runs once a stage between gathers: the whole
+                   staged transform, bit reversal included, in a few
+                   launches of many stages each (`ntt_plan`)
   * `carry_fold`   replaces `ntt_mxu._carry_fold_pallas`
   * `fold`         replaces `ntt_mxu._fold_pallas`
   * `hades_permute` replaces `pallas_field.hades_permute_pallas` (two
@@ -28,10 +31,11 @@ together) and linked into one shared library with a plain C interface on
 first use (never at import), cached under `zkvm_tpu_torch/build/` by a hash
 of the sources, and bound with ctypes.
 
-`padd`, `window_fold` and the Fq chain of `mont_pow` share the lazily
-reduced carry-flag arithmetic of `csrc/fq_lazy.cuh`; `hades_permute` and the
-Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr leaves less room: its
-ranges are stated there); the other kernels use `csrc/field.cuh`.
+`padd`, `padd_ilp`, `window_fold` and the Fq chain of `mont_pow` share the
+lazily reduced carry-flag arithmetic of `csrc/fq_lazy.cuh`; `hades_permute`,
+`ntt_stages` and the Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr
+leaves less room: its ranges are stated there); the other kernels use
+`csrc/field.cuh`.
 `fq_mul_chain` (one warp, a chain of dependent Fq products) and
 `empty_launch` are measuring probes, not kernels of any path: they have no
 count.
@@ -53,6 +57,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,14 +68,14 @@ from .limb_field import FQ, FR
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-_SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "butterfly.cu",
+_SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "ntt.cu",
             "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu")
 _HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
-            "butterfly": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
+            "ntt_stages": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
             "padd_ilp": 0, "field_addsub": 0}
 
 _lib = None
@@ -141,14 +146,14 @@ def build() -> float:
     lib.zk_padd.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
     lib.zk_fq_chain.argtypes = [_P, _P, _I, _I, _P]
     lib.zk_window_fold.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-    lib.zk_butterfly.argtypes = [_P] * 5 + [_LL, _LL, _LL, _P]
+    lib.zk_ntt_pass.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _P]
     lib.zk_carry_fold.argtypes = [_P, _P, _LL, _P]
     lib.zk_fold.argtypes = [_P, _P, _LL, _P]
     lib.zk_hades_permute.argtypes = [_P, _P, _P, _LL, _P]
-    lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P]
+    lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
     lib.zk_field_addsub.argtypes = [_I, _I, _P, _P, _P, _P, _LL, _LL, _P, _P]
     for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
-               lib.zk_padd, lib.zk_window_fold, lib.zk_butterfly,
+               lib.zk_padd, lib.zk_window_fold, lib.zk_ntt_pass,
                lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
                lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub):
         fn.restype = _I
@@ -519,10 +524,15 @@ def padd_layout(point):
 
 def _add_points(name: str, p, q, layouts):
     """The body the two addition wrappers share: validate the six
-    coordinates, then the plain version (CPU) or one launch of `zk_<name>`
-    into contiguous outputs.  `layouts` holds the `padd_layout` of p and of
-    q for the kernel that reads strided points in place, and is None for the
-    one that takes contiguous operands only."""
+    coordinates and their layouts (`padd_layout` of p and of q, None where
+    the kernel cannot read a point in place), then the plain version (CPU)
+    or one launch of `zk_<name>` into contiguous outputs."""
+    for point, layout in zip((p, q), layouts):
+        if layout is None:
+            raise ValueError(
+                f"{name}: the three coordinates of a point must share one "
+                f"layout whose leading axes collapse into one (strides "
+                f"{[t.stride() for t in point]})")
     if len(p) != 3 or len(q) != 3:
         raise ValueError(f"{name}: a point is an (x, y, z) triple")
     shape, dev = p[0].shape, p[0].device
@@ -534,8 +544,6 @@ def _add_points(name: str, p, q, layouts):
                              f"{tuple(shape)}")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
-        if layouts is None and not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
     if len(shape) < 2 or shape[-2] != FQ.n_limbs:
         raise ValueError(f"{name}: limb axis of {tuple(shape)} is not "
                          f"{FQ.n_limbs}")
@@ -550,12 +558,11 @@ def _add_points(name: str, p, q, layouts):
     build()
     lanes = shape[-1]
     groups = p[0].numel() // (FQ.n_limbs * lanes)
-    strides = () if layouts is None else (
-        (ctypes.c_longlong * 6)(*layouts[0], *layouts[1]),)
+    strides = (ctypes.c_longlong * 6)(*layouts[0], *layouts[1])
     with torch.cuda.device(dev):
         _launch(name, getattr(_lib, "zk_" + name),
                 *(t.data_ptr() for t in (*p, *q)),
-                *(t.data_ptr() for t in out), groups, lanes, *strides,
+                *(t.data_ptr() for t in out), groups, lanes, strides,
                 _stream(dev))
     return out
 
@@ -568,27 +575,22 @@ def padd(p, q, layouts=None):
     already hands them over as `layouts`, so that they are computed once."""
     if layouts is None:
         layouts = (padd_layout(p), padd_layout(q))
-    for point, layout in zip((p, q), layouts):
-        if layout is None:
-            raise ValueError(
-                f"padd: the three coordinates of a point must share one "
-                f"layout whose leading axes collapse into one (strides "
-                f"{[t.stride() for t in point]})")
     return _add_points("padd", p, q, layouts)
 
 
 def padd_ilp_plain(p, q):
-    """Plain version of the padd_ilp kernel: `padd16` already runs the 14
-    products as the kernel's three groups of 6 + 2 + 6 independent ones,
-    so it serves both addition kernels."""
+    """Plain version of the padd_ilp kernel: the function is `padd`'s, so
+    `padd16` serves both addition kernels."""
     return padd_plain(p, q)
 
 
-def padd_ilp(p, q):
+def padd_ilp(p, q, layouts=None):
     """The same addition as `padd`, bit for bit, by the grouped kernel: two
-    threads a point, each taking 3 + 1 + 3 of the 6 + 2 + 6 products.
-    Contiguous operands only."""
-    return _add_points("padd_ilp", p, q, None)
+    threads a point, each taking 3 + 3 of the 6 + 6 products.  Strided
+    points and `layouts` are taken as `padd` takes them."""
+    if layouts is None:
+        layouts = (padd_layout(p), padd_layout(q))
+    return _add_points("padd_ilp", p, q, layouts)
 
 
 # -----------------------------------------------------------------------------
@@ -659,40 +661,114 @@ def fq_mul_chain(a: torch.Tensor, iters: int, lazy: bool) -> torch.Tensor:
 
 
 # -----------------------------------------------------------------------------
-# butterfly
+# ntt_stages
 # -----------------------------------------------------------------------------
 
+# the tiles a block of `csrc/ntt.cu` holds: 2^9 or 2^10 Fr elements, 16 or
+# 32 KB of shared memory, four blocks of 128 threads an SM
+NTT_LOG_TILES = (9, 10)
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    log_n = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def ntt_plan(log_n: int, log_tile: int) -> list[tuple[int, int, int]]:
+    """The passes of the staged transform of 2^log_n elements over tiles of
+    at most 2^log_tile: (s0, k, c) = the pass runs the stages s0 .. s0 +
+    k - 1 on tiles of 2^k rows by 2^c columns.  A transform that fits one
+    tile is one pass of one column.  Else the first pass keeps at least 4
+    columns (its loads are runs of that many words), the later ones at
+    least 8, and the stages are spread evenly over the fewest passes; a
+    later pass takes its columns from the position's low bits, so c <= s0
+    (which binds only for tiles below 2^8).  Tiles of at least 2^4."""
+    if log_n <= log_tile:
+        return [(0, log_n, 0)]
+    first, later = log_tile - 2, log_tile - 3
+    passes = 2 + max(0, -(-(log_n - first - later) // later))
+    base, extra = divmod(log_n, passes)
+    plan, s0 = [], 0
+    for i in range(passes):
+        k = base + (i < extra)
+        plan.append((s0, k, min(log_tile - k, log_n - k if i == 0 else s0)))
+        s0 += k
+    return plan
+
+
+def ntt_log_tile(log_n: int) -> int:
+    """The tile a transform of 2^log_n takes: of NTT_LOG_TILES the one with
+    the fewest passes, the smaller where they tie (more blocks in flight,
+    the faster on the card: `tools/ntt_tiles.py`).  2^16 and 2^19 take
+    2^9 in three passes, 2^20 takes 2^10 in three."""
+    return min(NTT_LOG_TILES, key=lambda e: (len(ntt_plan(log_n, e)), e))
+
+
 def butterfly_plain(even: torch.Tensor, odd: torch.Tensor, tw: torch.Tensor):
-    """Plain version of the butterfly kernel."""
+    """One radix-2 stage on paired lanes: (even + tw * odd, even - tw * odd)
+    over Fr, `tw` shaped like the operands or broadcast to them."""
     e = lf.split16(even)
     t = lf.mont_mul16(FR, lf.split16(odd), lf.split16(tw))
     return lf.join16(lf.add16(FR, e, t)), lf.join16(lf.sub16(FR, e, t))
 
 
-def butterfly(even: torch.Tensor, odd: torch.Tensor, tw: torch.Tensor):
-    """(even + tw * odd, even - tw * odd) over Fr on [..., 8, B] int32
-    tensors.  `tw` is shaped like the operands, or one [8, B] table shared
-    by every leading group."""
-    dev = _check("butterfly", (even, odd), even.shape, FR.n_limbs)
-    shared = tw.dim() == 2 and even.dim() > 2
-    if _check("butterfly", (tw,), even.shape[-2:] if shared else even.shape,
-              FR.n_limbs) != dev:
-        raise ValueError(f"butterfly: twiddles on {tw.device}, operands on "
-                         f"{dev}")
+def ntt_stages_plain(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ntt_stages kernel: the bit-reversal gather,
+    then one `butterfly_plain` a stage.  Stage s pairs the positions b 2h +
+    t and b 2h + h + t (h = 2^s) with the twiddle tw[(n >> (s + 1)) t]."""
+    n = x.shape[-1]
+    lead = x.shape[:-2]
+    brev = torch.from_numpy(bit_reverse_indices(n).astype(np.int64))
+    x = x.index_select(-1, brev.to(x.device))
+    for s in range(n.bit_length() - 1):
+        h = 1 << s
+        m = n // (2 * h)
+        v = x.reshape(*lead, FR.n_limbs, m, 2, h)
+        w = tw[:, :n // 2:n >> (s + 1)].unsqueeze(-2).expand(FR.n_limbs, m, h)
+        plus, minus = butterfly_plain(
+            v[..., 0, :].reshape(*lead, FR.n_limbs, m * h),
+            v[..., 1, :].reshape(*lead, FR.n_limbs, m * h),
+            w.reshape(FR.n_limbs, m * h))
+        x = torch.stack([plus.reshape(*lead, FR.n_limbs, m, h),
+                         minus.reshape(*lead, FR.n_limbs, m, h)],
+                        dim=-2).reshape(x.shape)
+    return x
+
+
+def ntt_stages(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """The radix-2 NTT of a contiguous [..., 8, n] int32 Montgomery tensor
+    (n = 2^L >= 2), natural order in and out, with the [8, n/2] table of
+    the powers of the root (the inverse root for the inverse transform,
+    whose 1/n scaling is the caller's).  On the card: one launch a pass of
+    `ntt_plan` (three at 2^16, 2^19 and 2^20), each counted."""
+    dev = _mont_operands("ntt_stages", FR, (x, tw))
+    n = x.shape[-1]
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"ntt_stages: length {n} is not a power of two "
+                         f">= 2")
+    if tuple(tw.shape) != (FR.n_limbs, n // 2):
+        raise ValueError(f"ntt_stages: twiddle table {tuple(tw.shape)} is "
+                         f"not [8, {n // 2}]")
+    if not (x.is_contiguous() and tw.is_contiguous()):
+        raise ValueError("ntt_stages: operands must be contiguous")
     if dev.type == "cpu":
-        return butterfly_plain(even, odd, tw)
-    plus, minus = torch.empty_like(even), torch.empty_like(even)
-    if even.numel() == 0:
-        return plus, minus
+        return ntt_stages_plain(x, tw)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
     build()
-    lanes = even.shape[-1]
-    groups = even.numel() // (FR.n_limbs * lanes)
+    log_n = n.bit_length() - 1
+    rows = x.numel() // (FR.n_limbs * n)
     with torch.cuda.device(dev):
-        _launch("butterfly", _lib.zk_butterfly, even.data_ptr(),
-                odd.data_ptr(), tw.data_ptr(), plus.data_ptr(),
-                minus.data_ptr(), groups, lanes,
-                0 if shared else FR.n_limbs * lanes, _stream(dev))
-    return plus, minus
+        for s0, k, c in ntt_plan(log_n, ntt_log_tile(log_n)):
+            _launch("ntt_stages", _lib.zk_ntt_pass, x.data_ptr(),
+                    out.data_ptr(), tw.data_ptr(), rows, log_n, s0, k, c,
+                    _stream(dev))
+    return out
 
 
 # -----------------------------------------------------------------------------

@@ -4,10 +4,10 @@ Counterpart of `zkvm_tpu/ops/ntt.py`.  `Domain` mirrors
 plonk/src/fft/domain.rs:23-284 (fft/ifft/coset variants with GENERATOR=7
 cosets, vanishing-polynomial helpers, Lagrange coefficients).  Its device
 transforms take the byte-plane matmul route (`ntt_mxu.MXUTransform`); the
-staged butterfly transform (`butterfly_transform`: one `butterfly` kernel
-launch per stage) stays beside it as a plain function for cross-checks.
-Results are exact integers, hence bit-identical between the two routes and
-to the reference for the same domain.
+staged butterfly transform (`butterfly_transform`: the `ntt_stages` kernel,
+a few launches of many stages each) stays beside it as a function of its
+own.  Results are exact integers, hence bit-identical between the two
+routes and to the reference for the same domain.
 
 Tensors are `[*lead, 8, n]` int32 Montgomery limbs with any number of
 leading batch axes.  A transform runs on its operand's device; tables are
@@ -23,35 +23,9 @@ from .. import params
 from ..fields import Fr
 from . import kernels
 from . import limb_field as lf
+from .kernels import bit_reverse_indices  # noqa: F401  (the reference's name)
 from .limb_field import FR
 from .ntt_mxu import MXUTransform
-
-
-def bit_reverse_indices(n: int) -> np.ndarray:
-    log_n = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.uint32)
-    rev = np.zeros_like(idx)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
-
-
-def _ntt_impl(x, brev, even_idx, odd_idx, out_idx, tw_idx, tw_table):
-    """Iterative Cooley-Tukey NTT; x: [*lead, 8, n] Montgomery; output
-    natural-order evaluations.
-
-    Every stage runs over the same flat shape (gather indices and
-    twiddle-table lookups precomputed per stage on the host): two gathers,
-    one `butterfly` kernel launch over [*lead, 8, n/2] with the stage's
-    shared [8, n/2] twiddles, one gather of the concatenated outputs."""
-    x = x.index_select(-1, brev)
-    for s in range(even_idx.shape[0]):
-        even = x.index_select(-1, even_idx[s])
-        odd = x.index_select(-1, odd_idx[s])
-        tw = tw_table.index_select(-1, tw_idx[s])
-        plus, minus = kernels.butterfly(even, odd, tw)
-        x = torch.cat([plus, minus], dim=-1).index_select(-1, out_idx[s])
-    return x
 
 
 def _scale(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
@@ -98,49 +72,16 @@ class Domain:
         self._butterfly: dict[torch.device, tuple] = {}
 
     def _butterfly_tables(self, device: torch.device):
-        """(brev, (even, odd, out, twiddle) stage indexes, forward and
-        inverse twiddle tables) as tensors on `device`."""
+        """The forward and inverse [8, n/2] twiddle tables of the staged
+        transform as tensors on `device` (all that `ntt_stages` reads)."""
         dev = self._butterfly.get(device)
         if dev is None:
             if self._butterfly_np is None:
-                self._butterfly_np = (
-                    bit_reverse_indices(self.size).astype(np.int64),
-                    self._build_stage_indexes(),
-                    self._twiddle_tables(self.group_gen),
-                    self._twiddle_tables(self.group_gen_inv))
-            brev, stages, fwd, inv = self._butterfly_np
-            dev = self._butterfly[device] = (
-                torch.from_numpy(brev).to(device),
-                tuple(torch.from_numpy(t).to(device) for t in stages),
-                lf.u32_to_tensor(fwd, device), lf.u32_to_tensor(inv, device))
+                self._butterfly_np = (self._twiddle_tables(self.group_gen),
+                                      self._twiddle_tables(self.group_gen_inv))
+            dev = self._butterfly[device] = tuple(
+                lf.u32_to_tensor(t, device) for t in self._butterfly_np)
         return dev
-
-    def _build_stage_indexes(self):
-        """Per-stage flat gather indexes for the staged butterfly.
-
-        Stage s pairs (b*2h + t, b*2h + h + t) for h = 2^s; outputs land at
-        the same positions, gathered from concat([plus, minus]).
-        """
-        n = self.size
-        log_n = self.log_size
-        even = np.zeros((log_n, n // 2), dtype=np.int64)
-        odd = np.zeros((log_n, n // 2), dtype=np.int64)
-        out = np.zeros((log_n, n), dtype=np.int64)
-        twi = np.zeros((log_n, n // 2), dtype=np.int64)
-        k = np.arange(n // 2)
-        j = np.arange(n)
-        for s in range(log_n):
-            h = 1 << s
-            b = k // h
-            t = k % h
-            even[s] = b * 2 * h + t
-            odd[s] = b * 2 * h + h + t
-            jb = j // (2 * h)
-            jr = j % (2 * h)
-            out[s] = np.where(jr < h, jb * h + jr, n // 2 + jb * h + jr - h)
-            # stage twiddle for pair k is root^((n >> (s+1)) * (k % h))
-            twi[s] = (n >> (s + 1)) * t
-        return even, odd, out, twi
 
     def _twiddle_tables(self, root: int) -> np.ndarray:
         """[8, max(n/2, 1)] Montgomery table of root powers (host)."""
@@ -275,12 +216,13 @@ class Domain:
 def butterfly_transform(domain: Domain, x: torch.Tensor,
                         inverse: bool = False) -> torch.Tensor:
     """The staged butterfly transform of x [*lead, 8, n] over `domain`:
-    the same function as `Domain._run` by the other route (log2 n launches
-    of the butterfly kernel), without the inverse's 1/n scaling."""
+    the same function as `Domain._run` by the other route (the `ntt_stages`
+    kernel: the passes of `kernels.ntt_plan`, three at 2^19), without the
+    inverse's 1/n scaling."""
     if domain.size == 1:
         return x
-    brev, (even, odd, out, twi), fwd, inv = domain._butterfly_tables(x.device)
-    return _ntt_impl(x, brev, even, odd, out, twi, inv if inverse else fwd)
+    fwd, inv = domain._butterfly_tables(x.device)
+    return kernels.ntt_stages(x.contiguous(), inv if inverse else fwd)
 
 
 def _batch_inverse(vals: list[int], q: int) -> list[int]:
