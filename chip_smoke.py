@@ -33,7 +33,11 @@ Phases (any failure exits non-zero; no phase catches its own error):
      ntt_stages (the whole staged transform, bit reversal included, in one
      to three launches of many stages each) at every size from 2^1 to
      2^20, batches 1, 4 and 7, both directions, with the edge values 0, 1,
-     r - 1 and R mod r, and timed at [4, 8, 2^19] and [1, 8, 2^16];
+     r - 1 and R mod r, against its plain version and the matmul route,
+     and timed at [4, 8, 2^19] and [1, 8, 2^16]; then ntt_stages at 2^4,
+     2^9, 2^16, 2^19 and mont_mul over Fr on operands in [r, 2^256), which
+     their contracts exclude: whether each equals its plain version there
+     is printed, and fails nothing;
      padd_ilp (two threads a point on the lazily reduced arithmetic)
      against padd and the plain version at [24, 12, 32768], on p + p and
      on every second lane read in place, and timed in turns with padd;
@@ -52,12 +56,12 @@ Phases (any failure exits non-zero; no phase catches its own error):
      batched ifft -> blinders -> commit -> pad -> coset fft and back ->
      evaluations at z -> linear combination -> division by (X - z) ->
      commit of the witness -> AggregateProof.flatten -> OpeningKey.check
-     (true, and false after one evaluation is altered); the staged
-     transform (the ntt_stages kernel) and the unfused leaf reduction each
-     redo a whole 2^16 transform and must equal the matmul route bit for
-     bit; sampled evaluations are checked against host big-int Horner; the
-     staged route's host tables at 2^16 and 2^19 are built anew, timed and
-     sized;
+     (true, and false after one evaluation is altered); the matmul route
+     (carry_fold) and its unfused leaf reduction (fold) each redo a whole
+     2^16 transform and must equal Domain's staged transform (ntt_stages)
+     bit for bit; sampled evaluations are checked against host big-int
+     Horner; both routes' tables at 2^16 and 2^19 are built anew, timed
+     and sized;
   6. Merkle path: 4^10 seeded leaves -> PoseidonTree.from_leaves(10, ...,
      "cuda") -> root, openings (verify true, false for a wrong leaf, wire
      bytes round trip); 16 sampled nodes of every level and the root are
@@ -69,7 +73,8 @@ Phases (any failure exits non-zero; no phase catches its own error):
      native host sum;
   8. transform times of both routes at the prover's own shapes: ifft of
      [4, 8, 2^16] and [15, 8, 2^16], coset fft and ifft of [7, 8, 2^19]
-     and [16, 8, 2^19], coset ifft of [8, 2^19] (device and wall time,
+     and [16, 8, 2^19], coset ifft of [8, 2^19], Domain's own (the staged
+     route) against the same under matmul_route() (device and wall time,
      peak memory, each pair bit for bit equal);
      with --profile, also where the device time goes (torch.profiler);
   9. the dryrun prove: PublicParameters.setup(2^11, StdRng(42), "cuda"),
@@ -83,10 +88,16 @@ Phases (any failure exits non-zero; no phase catches its own error):
      (2^16 gates), setup 2^17 under StdRng(42) after an untimed setup of
      2^8, compile with the label b"flagship", a first prove and three warm
      proves under StdRng(7) (the three proofs byte-identical), verify and
-     the refusal of a changed public input; it prints setup, compile, first and warm prove times,
-     the per-round spans averaged over the warm proves, verify ms, peak
-     device memory, the device's busy share of one warm prove
-     (torch.profiler), the gates and the domain size;
+     the refusal of a changed public input; it prints setup, compile,
+     first and warm prove times, the per-round spans averaged over the
+     warm proves, verify ms, peak device memory, the device's busy share of
+     one warm prove (torch.profiler), the gates and the domain size; then
+     one prove whose every transform operand is checked canonical on the
+     card, the parent's route against this one's in one process (three
+     warm proves on the staged route, three under matmul_route(), three
+     staged again, all byte-identical; per route the walls, spans, device
+     time, busy share, copies, peak memory and launches), and a compile on
+     each route (time, peak memory, the same keys);
  11. the mesh: the flagship prover of phase 10 (setup and compile reused)
      over a mesh of four logical shards of the card (Mesh([cuda:0] * 4)),
      and over the real cards where torch.cuda.device_count() >= 2: a first
@@ -98,10 +109,15 @@ Phases (any failure exits non-zero; no phase catches its own error):
      powers, seeded scalars) against the native host MSM, the forest of
      4^10 leaves over four shards against merkle_tree_levels' root, and
      dryrun_multichip on meshes of 2, 4 and 8 shards, each equal to
-     tests/fixtures/dryrun_proof_v1.bin.  It prints the mesh prove's first
-     and warm times and spans, the single-device warm prove, the peak
-     device memory of the warm mesh proves and each component's ms, each
-     beside the card's name and power limit, and which meshes ran;
+     tests/fixtures/dryrun_proof_v1.bin, with every transform operand of a
+     mesh prove and of the dryruns checked canonical on the card and
+     ntt_stages held against its plain version at each of their shapes
+     (the shards' local FFTs); then the parent's route against this one's
+     as in phase 10, over the mesh.  It prints the mesh prove's first and
+     warm times and spans, the single-device warm prove, the peak device
+     memory of the warm mesh proves and each component's ms (the coset pair
+     on both routes), each beside the card's name and power limit, and
+     which meshes ran;
  12. the batch service at full width, through its CLI
      (zkvm_tpu_torch.service.cli): make-input of 32 leaves of a height-17
      tree, two bad leaves appended (a leaf that is not the opened one, an
@@ -121,10 +137,13 @@ Phases (any failure exits non-zero; no phase catches its own error):
  14. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
-     whole-transform cross-checks (the only callers of ntt_stages and fold),
-     the Merkle path, the padd comparison, one warm flagship prove, the
-     mesh (one warm mesh prove and one run of each mesh component) and the
-     first service run (compile and 32 proves), reported apart.
+     whole-transform cross-checks (the matmul route and its unfused
+     reduction: the only callers of carry_fold and fold), the Merkle path,
+     the padd comparison, one warm flagship prove, the mesh (one warm mesh
+     prove and one run of each mesh component) and the first service run
+     (compile and 32 proves), reported apart; ntt_stages must be launched
+     on the polynomial path, the flagship prove, the mesh and the service
+     run.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -157,12 +176,13 @@ from zkvm_tpu_torch.merkle import (Item, PoseidonTree,  # noqa: E402
                                    poseidon_opening_from_slice)
 from zkvm_tpu_torch.native import native_msm  # noqa: E402
 from zkvm_tpu_torch.ops import (g1_ops, kernels, msm, ntt,  # noqa: E402
-                                ntt_mxu, poseidon)
+                                ntt_mxu, ntt_sharded, poseidon)
 from zkvm_tpu_torch.ops.collective import Mesh  # noqa: E402
 from zkvm_tpu_torch.ops.ntt_sharded import DistributedDomain  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
 from zkvm_tpu_torch.ops.limb_field import FQ, FR  # noqa: E402
-from zkvm_tpu_torch.plonk import PlonkError, Proof, dpoly, kzg10  # noqa: E402
+from zkvm_tpu_torch.plonk import (Compiler, PlonkError, Proof,  # noqa: E402
+                                  dpoly, kzg10)
 from zkvm_tpu_torch.plonk.kzg10 import (AggregateProof,  # noqa: E402
                                         PublicParameters, powers_of)
 from zkvm_tpu_torch.rng import StdRng  # noqa: E402
@@ -279,6 +299,37 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def matmul_route():
+    """While it is open, `Domain`'s transforms and `DistributedDomain`'s
+    local FFTs take the matmul route (`ntt_mxu.MXUTransform`, the route of
+    the parent commit), each with its own scalings as before: the other
+    side of a comparison in one process.  The package's functions are put
+    back on exit."""
+    run, batched = ntt.Domain._run, ntt_sharded._batched_ntt
+
+    def root(dom, inverse):
+        return dom.group_gen_inv if inverse else dom.group_gen
+
+    def mxu_run(dom, x, inverse):
+        return x if dom.size == 1 else ntt_mxu.MXUTransform(
+            dom.size, root(dom, inverse))(x)
+
+    def mxu_batched(n, inverse):
+        return ntt_mxu.MXUTransform(n, root(ntt.Domain(n), inverse))
+
+    ntt.Domain._run, ntt_sharded._batched_ntt = mxu_run, mxu_batched
+    try:
+        yield
+    finally:
+        ntt.Domain._run, ntt_sharded._batched_ntt = run, batched
+
+
+def route(name: str):
+    """The context of a route: "staged" (the package's own) or "matmul"."""
+    return matmul_route() if name == "matmul" else contextlib.nullcontext()
 
 
 def rand_field(spec, shape, rng) -> np.ndarray:
@@ -781,6 +832,8 @@ NTT_STAGES_BATCHES = (1, 4, 7)
 # timed: the coset fft of four polynomials at 2^19 (the record's shape), one
 # polynomial at 2^16
 NTT_STAGES_TIMED = ((4, 19), (1, 16))
+# inputs in [r, 2^256), outside ntt_stages' contract: printed, not failed
+NON_CANONICAL_SIZES = (4, 9, 16, 19)
 
 
 def ntt_products(rows: int, log_n: int) -> int:
@@ -797,7 +850,8 @@ def phase_parity_ntt(rng, dev, rec) -> None:
     # -- ntt_stages: every size from 2^1 to 2^20 (below one tile, two and
     # three passes), batches 1, 4 and 7, both directions, the first lanes
     # of each batch at the edge values 0, 1, r - 1 and R mod r; against the
-    # plain version and the matmul route (`Domain._run`) on the card
+    # plain version and the matmul route (`ntt_mxu.MXUTransform`) on the
+    # card
     err, passes = 0, {}
     for log_n in NTT_STAGES_SIZES:
         dom = ntt.Domain(1 << log_n)
@@ -808,12 +862,14 @@ def phase_parity_ntt(rng, dev, rec) -> None:
                 set_lanes(x[g], FR, [0, 1, Q - 1, FR.R % Q][:dom.size])
             x = lf.u32_to_tensor(x, dev)
             for inverse, tw in zip((False, True), tables):
+                root = dom.group_gen_inv if inverse else dom.group_gen
                 before = kernels.LAUNCHES["ntt_stages"]
                 got = kernels.ntt_stages(x, tw)
                 passes[log_n] = kernels.LAUNCHES["ntt_stages"] - before
                 err = max(err, max_abs_err(got,
                                            kernels.ntt_stages_plain(x, tw)),
-                          max_abs_err(got, dom._run(x, inverse)))
+                          max_abs_err(got, ntt_mxu.MXUTransform(
+                              dom.size, root)(x)))
             del x, got
     log("ntt_stages against its plain version and the matmul route at 2^1 "
         ".. 2^20, batches 1, 4, 7, both directions: max_abs_err " + str(err)
@@ -843,6 +899,8 @@ def phase_parity_ntt(rng, dev, rec) -> None:
                                      launches_a_transform=passes[log_n], **b)
         del x
     rec["ntt_stages"]["max_abs_err"] = err
+    # its own generator: the draws of the later phases stay as they were
+    non_canonical_inputs(np.random.default_rng(SEED + 3), dev)
 
     # -- carry_fold: ragged batch with every column at 2^24 - 1, zeros, and
     # single columns (CPU plain); lanes 3 and 4 at the matmul route's
@@ -911,6 +969,91 @@ def phase_parity_ntt(rng, dev, rec) -> None:
                        shape=f"[17, {N}]",
                        **bound((kernels.N_WORDS + 8) * N * 4,
                                2 * mont_mul_ops(8) * N))
+
+
+def canonical(t: torch.Tensor) -> bool:
+    """Every element of a [..., 8, n] Fr limb tensor is below r (the borrow
+    out of x - r is set in every lane), on the tensor's device."""
+    x = lf.split16(t.reshape(-1, FR.n_limbs, t.shape[-1]))
+    _, under = lf._borrow_sub(x, lf.const16(FR, FR.p_limbs, x))
+    return bool(under.all())
+
+
+def above_r(rng, n: int) -> list[int]:
+    """n values drawn from [r, 2^256), which no canonical element takes."""
+    blob = rng.bytes(32 * n)
+    return [Q + int.from_bytes(blob[32 * i:32 * i + 32], "little")
+            % ((1 << 256) - Q) for i in range(n)]
+
+
+def fr_tensor(values, dev) -> torch.Tensor:
+    """[8, len] int32 limbs of the given 256-bit values, as they are."""
+    return lf.u32_to_tensor(np.stack([lf.int_to_limbs(v, FR.n_limbs)
+                                      for v in values], axis=-1), dev)
+
+
+def fr_ints(t: torch.Tensor) -> list[int]:
+    """The 256-bit values of an [8, len] limb tensor, as they are."""
+    host = lf.tensor_to_u32(t)
+    return [lf.limbs_to_int(host[:, j]) for j in range(host.shape[-1])]
+
+
+def near(v: int) -> str:
+    """A 256-bit value as its offset from the nearest of 0, r, 2^256 - r
+    and 2^256 (where that is below 2^64), else in hexadecimal."""
+    for name, base in (("", 0), ("r", Q), ("2^256 - r", (1 << 256) - Q),
+                       ("2^256", 1 << 256)):
+        if abs(v - base) < 1 << 64:
+            off = v - base
+            return (str(off) if not name else name if not off
+                    else f"{name} {'+' if off > 0 else '-'} {abs(off)}")
+    return hex(v)
+
+
+def non_canonical_inputs(rng, dev) -> None:
+    """`ntt_stages` and `mont_mul` on operands in [r, 2^256), which their
+    contracts exclude (`kernels.ntt_stages`, `csrc/fr_lazy.cuh`'s `mul`):
+    whether each kernel equals its plain version there, printed, never a
+    failure.  `ntt_stages` at 2^4, 2^9, 2^16 and 2^19, one row, both
+    directions, and on (0, 0, r + 1, 0), the smallest input on which the
+    schedule on the chains differs from the plain version, (r, 0, 0, 0)
+    and (0, r + 1) (`tests/test_torch_ntt_design.py`); `mont_mul`
+    over Fr with both operands in [r, 2^256), (r, r), (2^256 - 1, 2^256 -
+    1) and (r, 2^256 - 1) in its first lanes."""
+    for log_n in NON_CANONICAL_SIZES:
+        dom = ntt.Domain(1 << log_n)
+        x = fr_tensor(above_r(rng, dom.size), dev)[None]
+        for inverse, tw in zip((False, True), dom._butterfly_tables(dev)):
+            got = kernels.ntt_stages(x, tw)
+            want = kernels.ntt_stages_plain(x, tw)
+            log(f"ntt_stages on inputs in [r, 2^256) (outside its contract) "
+                f"at [1, 8, 2^{log_n}], {'inverse' if inverse else 'forward'}"
+                f": equal to the plain version {torch.equal(got, want)}, "
+                f"max_abs_err {max_abs_err(got, want)}; output canonical: "
+                f"kernel {canonical(got)}, plain {canonical(want)}")
+    for row in ([0, 0, Q + 1, 0], [Q, 0, 0, 0], [0, Q + 1]):
+        x = fr_tensor(row, dev)[None]
+        tw = ntt.Domain(len(row))._butterfly_tables(dev)[0]
+        got = fr_ints(kernels.ntt_stages(x, tw)[0])
+        want = fr_ints(kernels.ntt_stages_plain(x, tw)[0])
+        log(f"ntt_stages on {[near(v) for v in row]}: kernel "
+            f"{[near(v) for v in got]}, plain {[near(v) for v in want]}")
+    top = (1 << 256) - 1
+    lanes = 4099
+    a, b = above_r(rng, lanes), above_r(rng, lanes)
+    a[:3], b[:3] = [Q, top, Q], [Q, top, top]
+    ta, tb = fr_tensor(a, dev), fr_tensor(b, dev)
+    got = fr_ints(kernels.mont_mul(FR, ta, tb))
+    want = fr_ints(kernels.mont_mul_plain(FR, ta, tb))
+    differ = [j for j in range(lanes) if got[j] != want[j]]
+    log(f"mont_mul over Fr with both operands in [r, 2^256) (outside its "
+        f"contract), [8, {lanes}]: {len(differ)} lanes differ from the plain "
+        f"version, of them in the first three (the edge pairs) "
+        f"{[j for j in differ if j < 3]}; kernel output canonical in "
+        f"{sum(v < Q for v in got)} lanes, plain in "
+        f"{sum(v < Q for v in want)}"
+        + "".join(f"; lane {j}: a {a[j]:#x}, b {b[j]:#x}, kernel "
+                  f"{got[j]:#x}, plain {want[j]:#x}" for j in differ[:3]))
 
 
 def hades_bounds(lanes: int) -> dict:
@@ -1255,21 +1398,42 @@ def horner(coeffs: list[int], x: int) -> int:
     return acc
 
 
-def staged_route_tables(dev) -> None:
-    """The staged route's tables (the two twiddle tables) at 2^16 and 2^19,
-    built anew: the build's host seconds (tables on the card, synchronised)
-    and the bytes kept on the host and on the card."""
+def route_tables(dev) -> None:
+    """Each route's tables at 2^16 and 2^19, built anew in the same call:
+    the host seconds of the build with the tables lifted to the card
+    (synchronised) and the bytes kept on the host and on the card.  The
+    staged route's are its two twiddle tables; the matmul route's, for both
+    roots, its byte-plane DFT matrices (float32 on the card) and glue
+    tables."""
     for n in (N, N8):
         dom = ntt.Domain(n)
         dom._butterfly_np, dom._butterfly = None, {}
         t0 = time.perf_counter()
         tables = dom._butterfly_tables(dev)
         torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        kept = sum(t.numel() * 4 for t in tables)
-        log(f"staged route tables at 2^{n.bit_length() - 1}: built in "
-            f"{build_s:.4f} s, {kept / 2**20:.3f} MiB kept on the host and "
-            f"as much on the card")
+        staged_s = time.perf_counter() - t0
+        staged = sum(t.numel() * 4 for t in tables)
+        ntt_mxu._dft_matrix_bytes.cache_clear()
+        ntt_mxu._glue_table.cache_clear()
+        host = card = 0
+        t0 = time.perf_counter()
+        for root in (dom.group_gen, dom.group_gen_inv):
+            ntt_mxu.MXUTransform._cache.pop((n, root), None)
+            plans = [ntt_mxu.MXUTransform(n, root).plan]
+            while plans:
+                plan = plans.pop()
+                name = "glue" if plan.leaf_table is None else "leaf_table"
+                host += getattr(plan, name).nbytes
+                card += plan._lift(name, dev).numel() * 4
+                if plan.leaf_table is None:
+                    plans += [plan.sub_a, plan.sub_b]
+        torch.cuda.synchronize()
+        matmul_s = time.perf_counter() - t0
+        log(f"tables at 2^{n.bit_length() - 1}, built anew: staged route "
+            f"{staged_s:.4f} s, {staged / 2**20:.3f} MiB on the host and as "
+            f"much on the card; matmul route {matmul_s:.4f} s, "
+            f"{host / 2**20:.3f} MiB on the host, {card / 2**20:.3f} MiB on "
+            f"the card")
 
 
 def poly_path(ck, ok, evals, rng_seed: int, z: Fr, v: Fr) -> dict:
@@ -1308,22 +1472,14 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     z = Fr(int(rng.integers(1, 1 << 62)) << 130 | 0x1234567)
     v = Fr(int(rng.integers(1, 1 << 62)) << 120 | 0x7654321)
 
-    # host tables, built once per (n, root): apart from the transform times
-    t0 = time.perf_counter()
-    for dom in (ntt.Domain(N), ntt.Domain(N8)):
-        for root in (dom.group_gen, dom.group_gen_inv):
-            ntt_mxu.MXUTransform(dom.size, root)
-    out["mxu_tables_s"] = time.perf_counter() - t0
+    # host tables, built once per size: apart from the transform times
     t0 = time.perf_counter()
     ntt.Domain(N)._factor("size_inv", dev)
     ntt.Domain(N8)._factor("coset", dev)
     ntt.Domain(N8)._factor("coset_inv_scaled", dev)
-    out["factor_tables_s"] = time.perf_counter() - t0
-    log(f"host tables: matmul route 2^16 + 2^19, forward and inverse "
-        f"{out['mxu_tables_s']:.3f} s; coset and 1/n factors "
-        f"{out['factor_tables_s']:.3f} s")
-    staged_route_tables(dev)
-    torch.cuda.synchronize()
+    log(f"host tables: coset and 1/n factors "
+        f"{time.perf_counter() - t0:.3f} s")
+    route_tables(dev)
 
     t0 = time.perf_counter()
     poly_path(ck, ok, evals, SEED + 1, z, v)
@@ -1338,17 +1494,17 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     # ---- end of main path ----
 
     kernels.reset_launches()
-    # ---- cross-checks: the other route and the unfused reduction, each
-    # over a whole 2^16 transform, forward and inverse ----
+    # ---- cross-checks: the matmul route and its unfused reduction against
+    # the staged route of Domain, each over a whole 2^16 transform, forward
+    # and inverse ----
     dom = ntt.Domain(N)
     x = r["coeffs"][0]
     fwd = dom.fft_device(x)
     inv = dom._run(fwd, inverse=True)
-    routes_agree = (
-        torch.equal(ntt.butterfly_transform(dom, x), fwd)
-        and torch.equal(ntt.butterfly_transform(dom, fwd, inverse=True), inv))
     t_fwd = ntt_mxu.MXUTransform(N, dom.group_gen)
     t_inv = ntt_mxu.MXUTransform(N, dom.group_gen_inv)
+    routes_agree = (torch.equal(t_fwd(x), fwd)
+                    and torch.equal(t_inv(fwd), inv))
     unfused_agrees = (
         torch.equal(ntt_mxu.transform_unfused(t_fwd, x), fwd)
         and torch.equal(ntt_mxu.transform_unfused(t_inv, fwd), inv))
@@ -1375,13 +1531,14 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     if not torch.equal(fwd, evals[0]):
         raise AssertionError("fft(ifft(evals)) != evals at 2^16")
     if not routes_agree:
-        raise AssertionError("the staged butterfly transform disagrees "
-                             "with the matmul transform at 2^16")
+        raise AssertionError("the matmul transform disagrees with Domain's "
+                             "staged transform at 2^16")
     if not unfused_agrees:
         raise AssertionError("the unfused leaf reduction disagrees with "
-                             "carry_fold over a 2^16 transform")
-    log("routes: staged butterfly == matmul and unfused fold == fused, bit "
-        "for bit, 2^16 forward and inverse; both round trips exact")
+                             "Domain's staged transform at 2^16")
+    log("routes: matmul (carry_fold) == unfused (fold) == Domain's staged "
+        "transform (ntt_stages), bit for bit, 2^16 forward and inverse; "
+        "both round trips exact")
 
     # sampled evaluations against host big-int Horner
     c0 = mont_ints(x)
@@ -1416,7 +1573,7 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     log("commit: the first blinded commitment equals the native host MSM")
 
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "carry_fold"), "polynomial path")
+                                "ntt_stages"), "polynomial path")
     require_launched(crosscheck, ("mont_mul", "ntt_stages", "carry_fold",
                                   "fold"), "whole-transform cross-checks")
     out["launches"] = launches
@@ -1674,45 +1831,34 @@ PROVER_TRANSFORMS = (
     ("coset_ifft", 16, 19, "compiler.py:134, inverse"))
 
 
-def staged_route(dom, name: str, dev):
-    """`dom`'s transform `name` (ifft, coset_fft or coset_ifft) by the
-    staged route: `ntt.butterfly_transform` and the same scalings as the
-    Domain's own transforms."""
-    def run(x):
-        if name == "coset_fft":
-            x = ntt._scale(x, dom._factor("coset", dev))
-        y = ntt.butterfly_transform(dom, x, inverse=name != "coset_fft")
-        if name == "ifft":
-            y = ntt._scale(y, dom._factor("size_inv", dev))
-        elif name == "coset_ifft":
-            y = ntt._scale(y, dom._factor("coset_inv_scaled", dev))
-        return y
-    return run
-
-
 def phase_times(rng, dev) -> None:
     """Both routes at the prover's own transform shapes (PROVER_TRANSFORMS),
-    in the same call: device time (CUDA events, launches back to back),
-    wall time (host clock, synchronised: what a caller waits, Python's
-    enqueueing included) and peak memory; each pair must agree bit for bit.
-    Then the dpoly functions and the field_addsub glue at 2^16."""
+    in the same call: `Domain`'s own transform (the staged route) and the
+    same transform under `matmul_route()` (the matmul route, same
+    scalings); device time (CUDA events, launches back to back), wall time
+    (host clock, synchronised: what a caller waits, Python's enqueueing
+    included) and peak memory; each pair must agree bit for bit.  Then the
+    dpoly functions and the field_addsub glue at 2^16."""
     card = card_line()
     for name, rows, log_n, site in PROVER_TRANSFORMS:
         dom = ntt.Domain(1 << log_n)
         x = lf.u32_to_tensor(rand_field(FR, (rows, 8, dom.size), rng), dev)
-        routes = (("matmul", getattr(dom, name + "_device")),
-                  ("staged", staged_route(dom, name, dev)))
-        if not torch.equal(routes[0][1](x), routes[1][1](x)):
+        fn = getattr(dom, name + "_device")
+        with matmul_route():
+            matmul = fn(x)
+        if not torch.equal(matmul, fn(x)):
             raise AssertionError(f"routes disagree: {name} [{rows}, 8, "
                                  f"2^{log_n}]")
+        del matmul
         reps = 3 if rows * dom.size > 1 << 21 else 10
         line = f"time {name} [{rows}, 8, 2^{log_n}] ({site}):"
-        for route, fn in routes:
-            torch.cuda.reset_peak_memory_stats()
-            dev_ms = cuda_ms(lambda: fn(x), reps)
-            wall_ms = host_ms(lambda: fn(x), reps)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            line += (f" {route} route device {dev_ms:.4f} ms, wall "
+        for side in ("matmul", "staged"):
+            with route(side):
+                torch.cuda.reset_peak_memory_stats()
+                dev_ms = cuda_ms(lambda: fn(x), reps)
+                wall_ms = host_ms(lambda: fn(x), reps)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            line += (f" {side} route device {dev_ms:.4f} ms, wall "
                      f"{wall_ms:.4f} ms, peak {peak:.3f} GiB;")
         log(f"{line} {card}")
         del x
@@ -1779,6 +1925,86 @@ def phase_prove_dryrun(dev) -> None:
         f"refused")
 
 
+AB_PROVES = 3   # warm proves a route takes a turn: staged, matmul, staged
+
+
+def route_ab(label: str, prove, want: bytes) -> None:
+    """The parent's NTT route against this one's, in one process: `prove()`
+    (a warm prove, returning its wall s and proof bytes) AB_PROVES times on
+    the staged route, AB_PROVES times under `matmul_route()`, AB_PROVES
+    times staged again; every proof must equal `want` byte for byte.  For
+    each route: the walls, the spans averaged over its proves, the peak
+    device memory, the launches of its first prove, and one more prove
+    under torch.profiler (device time, busy share, copies)."""
+    card = card_line()
+    out = {}
+    for turn, side in enumerate(("staged", "matmul", "staged")):
+        r = out.setdefault(side, {"walls": [], "spans": {}, "peak_gib": 0.0})
+        with route(side):
+            metrics.GLOBAL.reset()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(AB_PROVES):
+                kernels.reset_launches()
+                wall, blob = prove()
+                if blob != want:
+                    raise AssertionError(f"{label}: a proof on the {side} "
+                                         f"route differs")
+                r["walls"].append(wall)
+                if turn < 2 and i == 0:
+                    r["launches"] = dict(kernels.LAUNCHES)
+            r["peak_gib"] = max(r["peak_gib"],
+                                torch.cuda.max_memory_allocated() / 2**30)
+            for k, v in metrics.report().items():
+                tot = r["spans"].setdefault(k, [0.0, 0])
+                tot[0] += v["total_s"]
+                tot[1] += v["count"]
+            if turn < 2:
+                rows = profiled(f"{label}, {side} route", prove, top=12)
+                r["device_ms"] = sum(us for _, us, _ in rows) / 1e3
+                copies = [(us, n) for key, us, n in rows
+                          if "copy" in key.lower() or "Memcpy" in key]
+                r["copy_ms"] = sum(us for us, _ in copies) / 1e3
+                r["copy_kernels"] = sum(n for _, n in copies)
+    for side, r in out.items():
+        r["wall_s"] = sum(r["walls"]) / len(r["walls"])
+        r["busy_share"] = r["device_ms"] / (r["wall_s"] * 1e3)
+        log(f"{label}, {side} route ({card}): warm "
+            + ", ".join(f"{w:.3f}" for w in r["walls"])
+            + f" s (mean {r['wall_s']:.4f} s); one prove's device time "
+            f"{r['device_ms']:.3f} ms, busy share {r['busy_share']:.4f}, "
+            f"copy kernels {r['copy_ms']:.3f} ms x{r['copy_kernels']}; "
+            f"peak device memory {r['peak_gib']:.3f} GiB")
+        log(f"{label}, {side} route, spans averaged over its proves: "
+            + "; ".join(f"{k} {t / c:.4f} s"
+                        for k, (t, c) in r["spans"].items()))
+        log(f"{label}, {side} route, launches of one prove: "
+            f"{r['launches']}")
+    log(f"{label}: the {3 * AB_PROVES} proofs of both routes equal byte for "
+        f"byte")
+
+
+@contextlib.contextmanager
+def staged_operands(seen: dict):
+    """While it is open, every operand of `ntt.butterfly_transform` (every
+    transform of `Domain` and every local FFT of `DistributedDomain`) must
+    be canonical, which `kernels.ntt_stages` assumes (checked on the card);
+    `seen` counts the operands by shape."""
+    real = ntt.butterfly_transform
+
+    def checked(domain, x, inverse=False):
+        if not canonical(x):
+            raise AssertionError(f"a transform operand {tuple(x.shape)} "
+                                 f"has an element >= r")
+        seen[tuple(x.shape)] = seen.get(tuple(x.shape), 0) + 1
+        return real(domain, x, inverse)
+
+    ntt.butterfly_transform = checked
+    try:
+        yield seen
+    finally:
+        ntt.butterfly_transform = real
+
+
 def phase_prove_flagship(dev) -> dict:
     """The flagship at full width through `benches.run_flagship` (the
     steps `tools/bench_flagship.py` times): setup 2^17, compile the
@@ -1835,17 +2061,73 @@ def phase_prove_flagship(dev) -> dict:
         f"share of a warm prove {out['busy_share']:.4f} (device busy "
         f"{busy:.3f} ms over the mean warm wall without the profiler)")
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "carry_fold", "field_addsub"),
+                                "ntt_stages", "field_addsub"),
                      "flagship prove")
     out["launches"] = launches
+
+    with staged_operands({}) as seen:
+        prover.prove(StdRng(7), circuit)
+    log(f"flagship prove: every transform operand canonical on the card; "
+        f"operands by shape {seen}")
+    route_ab("flagship warm prove", lambda: timed_prove(prover, circuit)[:2],
+             proof.to_bytes())
+    # the compile on each route: the same keys
+    pp = PublicParameters.setup(1 << FLAGSHIP_SETUP_LOG, StdRng(42), dev)
+    keys = prover.to_bytes()
+    for side in ("matmul", "staged"):
+        with route(side):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, _ = Compiler.compile_with_circuit(pp, b"flagship",
+                                                     circuit)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+        if again.to_bytes() != keys:
+            raise AssertionError(f"the compile on the {side} route gives "
+                                 f"other keys")
+        log(f"flagship compile, {side} route ({card_line()}): "
+            f"{compile_s:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; the keys "
+            f"equal the first compile's")
+        del again
     out.update(prover=prover, verifier=verifier, circuit=circuit,
                proof_bytes=proof.to_bytes())
     return out
 
 
-def mesh_prove(prover, circuit, mesh) -> tuple[float, bytes, list]:
-    """One flagship prove over `mesh`: (wall s, proof bytes, public
-    inputs)."""
+def local_transform_parity(shapes: dict, dev) -> int:
+    """`ntt_stages` against its plain version at every operand shape of
+    the mesh paths (`shapes`, from `staged_operands`: the local FFTs of
+    the shards, many rows of a few hundred points at 8 shards, and the home
+    device's transforms), both directions, the edge values 0, 1, r - 1 and
+    R mod r in the first lanes of each row; fails on any difference."""
+    rng = np.random.default_rng(SEED + 4)
+    shapes = sorted((t for t in shapes if t[-1] > 1),
+                    key=lambda t: (t[-1], t))
+    err = 0
+    for shape in shapes:
+        x = rand_field(FR, (math.prod(shape[:-2]), 8, shape[-1]), rng)
+        for g in range(x.shape[0]):
+            set_lanes(x[g], FR, [0, 1, Q - 1, FR.R % Q][:shape[-1]])
+        x = lf.u32_to_tensor(x, dev).reshape(shape)
+        for tw in ntt.Domain(shape[-1])._butterfly_tables(dev):
+            err = max(err, max_abs_err(kernels.ntt_stages(x, tw),
+                                       kernels.ntt_stages_plain(x, tw)))
+    log(f"ntt_stages against its plain version at the {len(shapes)} operand "
+        f"shapes of the mesh paths, both directions: max_abs_err {err}; "
+        f"shapes (rows, 8, n): "
+        + ", ".join(f"({math.prod(t[:-2])}, 8, 2^{t[-1].bit_length() - 1})"
+                    for t in shapes))
+    if err:
+        raise AssertionError("ntt_stages disagrees with its plain version at "
+                             "a shape of the mesh paths")
+    return err
+
+
+def timed_prove(prover, circuit, mesh=None) -> tuple[float, bytes, list]:
+    """One flagship prove, over `mesh` where one is given: (wall s, proof
+    bytes, public inputs)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     proof, pis = prover.prove(StdRng(7), circuit, mesh=mesh)
@@ -1886,7 +2168,7 @@ def phase_mesh(rng, dev, fl) -> dict:
         check(proof.to_bytes(), "single-device")
         return time.perf_counter() - t0
 
-    out["first_s"], blob, pis = mesh_prove(prover, circuit, mesh)
+    out["first_s"], blob, pis = timed_prove(prover, circuit, mesh)
     check(blob, "first mesh")
     singles = [single_prove()]
 
@@ -1901,7 +2183,7 @@ def phase_mesh(rng, dev, fl) -> dict:
     metrics.GLOBAL.reset()
     kernels.reset_launches()
     # ---- main path: one warm mesh prove and the mesh's components ----
-    wall, blob, pis = mesh_prove(prover, circuit, mesh)
+    wall, blob, pis = timed_prove(prover, circuit, mesh)
     evals = dd8.coset_fft_device(x)
     back = dd8.coset_ifft_device(evals)
     msm_point = msm.msm_sharded(points, scalars, mesh)
@@ -1916,7 +2198,7 @@ def phase_mesh(rng, dev, fl) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for i in range(MESH_WARM_PROVES - 1):
         kernels.reset_launches()
-        wall, blob, pis = mesh_prove(prover, circuit, mesh)
+        wall, blob, pis = timed_prove(prover, circuit, mesh)
         if i == 0:
             prove_launches = dict(kernels.LAUNCHES)
         check(blob, "warm mesh")
@@ -1974,7 +2256,11 @@ def phase_mesh(rng, dev, fl) -> dict:
                              "merkle_tree_levels' root")
     ctx = msm.MSMContext(points, dev)
     coeffs = [FR.to_mont_array([v.value for v in scalars], dev)]
-    ms = {
+    with matmul_route():
+        ms = {"coset_fft_matmul": cuda_ms(lambda: dd8.coset_fft_device(x), 3),
+              "coset_ifft_matmul": cuda_ms(
+                  lambda: dd8.coset_ifft_device(evals), 3)}
+    ms.update({
         "coset_fft": cuda_ms(lambda: dd8.coset_fft_device(x), 3),
         "coset_fft_one_device": cuda_ms(lambda: dom8.coset_fft_device(x), 3),
         "coset_ifft": cuda_ms(lambda: dd8.coset_ifft_device(evals), 3),
@@ -1989,13 +2275,15 @@ def phase_mesh(rng, dev, fl) -> dict:
         "forest": cuda_ms(lambda: forest_root(leaves, mesh), 2),
         "levels_one_device": cuda_ms(
             lambda: poseidon.merkle_tree_levels(leaves), 2),
-    }
+    })
     out["component_ms"] = ms
     log(f"mesh components ({card}), ms by CUDA events: "
         f"DistributedDomain(2^{n8.bit_length() - 1}) coset_fft "
-        f"{ms['coset_fft']:.3f} (Domain {ms['coset_fft_one_device']:.3f}), "
-        f"coset_ifft {ms['coset_ifft']:.3f} (Domain "
-        f"{ms['coset_ifft_one_device']:.3f}), bit for bit; msm_sharded of "
+        f"{ms['coset_fft']:.3f} (Domain {ms['coset_fft_one_device']:.3f}; "
+        f"on the matmul route {ms['coset_fft_matmul']:.3f}), coset_ifft "
+        f"{ms['coset_ifft']:.3f} (Domain {ms['coset_ifft_one_device']:.3f}; "
+        f"on the matmul route {ms['coset_ifft_matmul']:.3f}), bit for bit; "
+        f"msm_sharded of "
         f"{N} points {ms['msm_sharded']:.3f} (host encoding and decoding "
         f"included), equal to the native host MSM; one set of 2^16 "
         f"Montgomery coefficients on a built context (the commits' call) "
@@ -2005,18 +2293,25 @@ def phase_mesh(rng, dev, fl) -> dict:
         f"{ms['forest']:.3f} (merkle_tree_levels {ms['levels_one_device']:.3f}"
         f"), the same root")
 
-    for shards in DRYRUN_MESH_SHARDS:
-        t0 = time.perf_counter()
-        dryrun.dryrun_multichip(Mesh([dev] * shards))
-        log(f"dryrun_multichip on {shards} logical shards of {dev}: forest, "
-            f"msm_sharded, DistributedDomain and the mesh prove equal to "
-            f"tests/fixtures/dryrun_proof_v1.bin, verified "
-            f"({time.perf_counter() - t0:.3f} s)")
+    # every operand of the staged route on the mesh paths, checked on the
+    # card: one warm mesh prove and dryrun_multichip at 2, 4 and 8 shards
+    with staged_operands({}) as seen:
+        timed_prove(prover, circuit, mesh)
+        for shards in DRYRUN_MESH_SHARDS:
+            t0 = time.perf_counter()
+            dryrun.dryrun_multichip(Mesh([dev] * shards))
+            log(f"dryrun_multichip on {shards} logical shards of {dev}: "
+                f"forest, msm_sharded, DistributedDomain and the mesh prove "
+                f"equal to tests/fixtures/dryrun_proof_v1.bin, verified "
+                f"({time.perf_counter() - t0:.3f} s)")
+    out["ntt_local_err"] = local_transform_parity(seen, dev)
+    route_ab("mesh warm prove", lambda: timed_prove(prover, circuit, mesh)[:2],
+             want)
     meshes = [str(mesh)] + [f"{s} logical shards of {dev}"
                             for s in DRYRUN_MESH_SHARDS]
     if torch.cuda.device_count() >= 2:
         cards = Mesh([f"cuda:{i}" for i in range(torch.cuda.device_count())])
-        wall, blob, _ = mesh_prove(prover, circuit, cards)
+        wall, blob, _ = timed_prove(prover, circuit, cards)
         check(blob, "multi-card mesh")
         dryrun.dryrun_multichip(cards)
         log(f"mesh prove over the cards {cards}: {wall:.3f} s, equal to the "
@@ -2025,7 +2320,7 @@ def phase_mesh(rng, dev, fl) -> dict:
     log(f"meshes that ran: {meshes}; the mesh phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     require_launched(launches, ("padd", "window_fold", "mont_mul",
-                                "carry_fold", "field_addsub",
+                                "ntt_stages", "field_addsub",
                                 "hades_permute"), "mesh path")
     out["launches"] = launches
     return out
@@ -2179,7 +2474,7 @@ def phase_service(dev, root: Path) -> dict:
     log(f"launches of the first service run (compile + {SERVICE_LEAVES} "
         f"proves): {launches}")
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
-                                "window_fold", "carry_fold", "field_addsub"),
+                                "window_fold", "ntt_stages", "field_addsub"),
                      "service run")
     shutil.rmtree(work)
     return {"launches": launches}
@@ -2220,9 +2515,9 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
 def profiled(label: str, fn, top: int = 10,
              reps: int = 1) -> list[tuple[str, float, int]]:
     """`reps` warm calls of fn() under torch.profiler: wall time, device
-    busy time and idle share, and the largest device items by name (a
-    window of one short launch can come back empty, so the checks of what
-    runs beside one kernel take a few)."""
+    busy time and idle share, the calls of `aten::copy_`, and the largest
+    device items by name (a window of one short launch can come back empty,
+    so the checks of what runs beside one kernel take a few)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2238,8 +2533,11 @@ def profiled(label: str, fn, top: int = 10,
     busy_ms = sum(r[1] for r in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
+    copies = sum(e.count for e in prof.key_averages()
+                 if e.key == "aten::copy_")
     log(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"aten::copy_ x{copies}")
     for name, us, count in rows[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
             f"x{count:<5d} {name[:90]}")
@@ -2259,10 +2557,10 @@ def phase_profile(rng, dev, ck, ok) -> None:
              lambda: poly_path(ck, ok, evals, SEED + 2, z, v), top=16)
     dom8 = ntt.Domain(N8)
     x = lf.u32_to_tensor(rand_field(FR, (4, 8, N8), rng), dev)
-    profiled("coset_fft 2^19 x 4, matmul route",
-             lambda: dom8.coset_fft_device(x))
-    profiled("coset_fft 2^19 x 4, staged route",
-             lambda: staged_route(dom8, "coset_fft", dev)(x))
+    for name in ("matmul", "staged"):
+        with route(name):
+            profiled(f"coset_fft 2^19 x 4, {name} route",
+                     lambda: dom8.coset_fft_device(x))
     del x
 
     def field(spec, shape):
@@ -2353,6 +2651,8 @@ def main() -> int:
     phase_prove_dryrun(dev)
     fl = phase_prove_flagship(dev)
     mh = phase_mesh(rng, dev, fl)
+    rec["ntt_stages"]["max_abs_err"] = max(rec["ntt_stages"]["max_abs_err"],
+                                           mh["ntt_local_err"])
     sv = phase_service(dev, Path(__file__).resolve().parent)
     phase_benches(dev)
 

@@ -307,6 +307,22 @@ def test_butterfly_kernel_matches_plain(cuda, log_n, lead):
         assert torch.equal(got.cpu(), kernels.ntt_stages_plain(x, tw))
 
 
+def test_butterfly_kernel_outside_its_contract(cuda):
+    """On (0, 0, r + 1, 0), outside its contract (canonical operands), the
+    kernel gives what `tests/test_torch_ntt_design.py`'s schedule on the
+    chains gives, (1, 2^256 - 1 - r, 1, 2^256 - 1), not the plain
+    version's (1, r - 1, 1, r - 1)."""
+    from zkvm_tpu_torch.ops import ntt
+
+    p, top = lf.FR.modulus, (1 << 256) - 1
+    x = lf.u32_to_tensor(np.stack([lf.int_to_limbs(v, 8)
+                                   for v in (0, 0, p + 1, 0)], axis=-1), "cpu")
+    tw = ntt.Domain(4)._butterfly_tables(torch.device("cpu"))[0]
+    got = lf.tensor_to_u32(kernels.ntt_stages(x[None].to(cuda), tw.to(cuda)))
+    assert [lf.limbs_to_int(got[0, :, i]) for i in range(4)] == [
+        1, top - p, 1, top]
+
+
 def _columns(seed, lanes):
     rng = np.random.default_rng(seed)
     d = np.zeros((68, lanes), dtype=np.int32)
@@ -340,10 +356,10 @@ def test_transform_routes_agree_on_card(cuda):
     dom = ntt.Domain(n)
     x = _field(lf.FR, (2, 8, n), 17)
     want = dom.fft_device(x)  # CPU: the plain versions
-    got = dom.fft_device(x.to(cuda))
+    got = dom.fft_device(x.to(cuda))  # the staged route: ntt_stages
     assert torch.equal(got.cpu(), want)
-    assert torch.equal(ntt.butterfly_transform(dom, x.to(cuda)).cpu(), want)
-    t = ntt_mxu.MXUTransform(n, dom.group_gen)
+    t = ntt_mxu.MXUTransform(n, dom.group_gen)  # the matmul route
+    assert torch.equal(t(x.to(cuda)).cpu(), want)
     assert torch.equal(ntt_mxu.transform_unfused(t, x.to(cuda)).cpu(), want)
     assert torch.equal(dom.ifft_device(got).cpu(), x)
 

@@ -35,7 +35,7 @@ from test_torch_plonk_host import FixedCircuit  # noqa: E402
 torch.set_num_threads(1)
 
 FIXTURES = Path(__file__).parent / "fixtures"
-WRAPPERS = ("mont_mul", "field_addsub", "padd", "window_fold", "carry_fold")
+WRAPPERS = ("mont_mul", "field_addsub", "padd", "window_fold", "ntt_stages")
 
 
 @pytest.fixture(scope="module")

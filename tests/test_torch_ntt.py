@@ -2,7 +2,9 @@
 
 The same numpy-seeded Montgomery arrays go through both packages on the
 CPU: the reference through its non-TPU branch (`_dft_leaf`'s carry scan,
-`_ntt_impl_jnp`), the port through its kernels' plain versions.  Exact
+`_ntt_impl_jnp`), the port through its kernels' plain versions.  `Domain`'s
+transforms take the staged route (`ntt_stages`); the matmul route
+(`ntt_mxu`), which no path calls, is held here as the cross-check.  Exact
 integer arithmetic: tolerance zero, bit for bit after `to_reference`.
 Sizes: 2^5 (a single leaf), 2^9 (two levels, uneven split 32 * 16) and
 2^10 (even split 32 * 32).
@@ -94,11 +96,11 @@ def test_mxu_transform_matches_reference(n, lead, inverse):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_per_byte_plane_branch_gives_the_same(n, monkeypatch):
-    dom = ntt.Domain(n)
+    t = ntt_mxu.MXUTransform(n, ntt.Domain(n).group_gen)
     x = lf.from_reference_lead(_ref_array((2,), n, 11), FR, "cpu")
-    want = dom.fft_device(x)
+    want = t(x)
     monkeypatch.setattr(ntt_mxu, "C_WHOLE_MAX_BYTES", 0)
-    assert torch.equal(dom.fft_device(x), want)
+    assert torch.equal(t(x), want)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -126,8 +128,10 @@ def test_butterfly_transform_matches_reference_and_matmul_route(n, inverse):
     x = lf.from_reference_lead(ref, FR, "cpu")
     dom, rdom = ntt.Domain(n), rntt.Domain(n)
     got = ntt.butterfly_transform(dom, x, inverse)
-    assert torch.equal(got, dom._run(x, inverse))
+    assert torch.equal(got, dom._run(x, inverse))  # Domain's own route
     if n > 1:
+        root = dom.group_gen_inv if inverse else dom.group_gen
+        assert torch.equal(got, ntt_mxu.MXUTransform(n, root)(x))
         brev, (even, odd, out, twi), fwd, inv = rdom._butterfly_tables()
         want = rntt._ntt_impl_jnp(jnp.asarray(ref), brev, even, odd, out, twi,
                                   inv if inverse else fwd)

@@ -28,7 +28,7 @@ the kernel itself is the bit-for-bit comparison on the card
 The model is run at n = 2^1 .. 2^12, batch 1 and 3, forward and inverse,
 over the kernel's own tiles and over tiles of 2^5 and 2^6 (so that small
 transforms take two, three and more passes), and equals
-`kernels.ntt_stages_plain`, the matmul route (`Domain._run`) and
+`kernels.ntt_stages_plain`, the matmul route (`ntt_mxu.MXUTransform`) and
 `zkvm_tpu`'s staged transform and `Domain.fft_device`, bit for bit.
 """
 
@@ -46,7 +46,7 @@ from test_torch_hades_design import add_r, mul, reduce_r, run_chain
 from test_torch_hades_design import value as words_value
 from test_torch_hades_design import words
 from zkvm_tpu.ops import ntt as rntt
-from zkvm_tpu_torch.ops import kernels, ntt
+from zkvm_tpu_torch.ops import kernels, ntt, ntt_mxu
 from zkvm_tpu_torch.ops import limb_field as lf
 from zkvm_tpu_torch.ops.limb_field import FR
 
@@ -202,6 +202,26 @@ def butterfly_int(x: int, y: int, w: int | None) -> tuple[int, int]:
     return (x + t) % P, (x - t) % P
 
 
+def butterfly_unchecked(x: int, y: int, w: int | None) -> tuple[int, int]:
+    """`butterfly_ptx` on words as they come, no range asserted: what the
+    kernel does with an operand in [r, 2^256), which its contract
+    excludes.  `add_r` drops the carry out of 2^256 and subtracts r at most
+    once; `sub_r` adds r back once after a borrow."""
+    if w is None:
+        t = words(y)
+    else:
+        t = mul(words(w), words(y))      # any y: below w y / R + r < 2r
+        reduce_r(t)
+    d = words(x)
+    scalars, _ = run_chain("sub8", d, t)
+    run_chain("add8", d, [k & scalars["mask"] for k in P_WORDS])
+    xs = words(x)
+    run_chain("add8", xs, t)
+    e = list(xs)
+    scalars, _ = run_chain("sub8", e, P_WORDS)
+    return words_value(xs if scalars["mask"] else e), words_value(d)
+
+
 EDGE = [0, 1, P - 1, R % P, (P + 1) // 2]
 
 
@@ -228,9 +248,11 @@ def brev(v: int, bits: int) -> int:
 
 
 def model(rows: list[list[int]], tw: list[int], log_tile: int,
-          butterfly=butterfly_int) -> list[list[int]]:
+          butterfly=butterfly_int, canonical=True) -> list[list[int]]:
     """`zk_ntt_pass` over the passes of `kernels.ntt_plan(L, log_tile)` on
-    canonical Montgomery values; `tw` the twiddle table (n/2 values)."""
+    canonical Montgomery values (any 256-bit words where `canonical` is
+    false, whose outputs are then not asserted below r); `tw` the twiddle
+    table (n/2 values)."""
     n = len(rows[0])
     log_n = n.bit_length() - 1
     half = n >> 1
@@ -349,7 +371,8 @@ def model(rows: list[list[int]], tw: list[int], log_tile: int,
                         out[g][p] = tile[i]
                         stored.add(p)
             assert loaded == stored == set(range(n))
-    assert all(v is not None and 0 <= v < P for row in out for v in row)
+    assert all(v is not None and (0 <= v < P or not canonical)
+               for row in out for v in row)
     return out
 
 
@@ -408,7 +431,8 @@ def test_schedule_equals_plain_matmul_route_and_reference(log_n, batch):
     brev_r, stages_r, fwd_r, inv_r = rdom._butterfly_tables()
     for inverse, tw in zip((False, True), tables):
         want = kernels.ntt_stages_plain(x, tw)
-        assert torch.equal(want, dom._run(x, inverse))  # the matmul route
+        root = dom.group_gen_inv if inverse else dom.group_gen
+        assert torch.equal(want, ntt_mxu.MXUTransform(n, root)(x))
         want_ints = _ints(want)
         for log_tile in (kernels.ntt_log_tile(log_n), 5, 6):
             assert model(rows, _table(tw), log_tile) == want_ints, log_tile
@@ -436,6 +460,34 @@ def test_schedule_on_the_chains_equals_plain(log_n, log_tile):
             log_n]
         got = model(rows, _table(tw), log_tile, butterfly=butterfly_ptx)
         assert got == _ints(kernels.ntt_stages_plain(x, tw))
+
+
+def test_outside_its_contract_the_kernel_differs_from_plain():
+    """`kernels.ntt_stages` assumes canonical operands.  Its first stage
+    pair adds and subtracts its inputs with no product, where the plain
+    version multiplies the odd operand by tw[0] = 1 and so reduces it: the
+    smallest input that shows the difference is n = 4, (0, 0, r + 1, 0),
+    for which the schedule on the chains gives (1, 2^256 - 1 - r, 1, 2^256
+    - 1) and the plain version (1, r - 1, 1, r - 1).  (r, 0, 0, 0) passes
+    r through to both alike; at n = 2 the one stage takes a product and
+    agrees.  `chip_smoke.py` prints the card's result on the same inputs.
+    Inside the contract the same unchecked chains give the plain version."""
+    cpu = torch.device("cpu")
+    for row, kernel, plain in (
+            ([0, 0, P + 1, 0], [1, R - 1 - P, 1, R - 1], [1, P - 1, 1, P - 1]),
+            ([P, 0, 0, 0], [0, 0, 0, P], [0, 0, 0, P]),
+            ([0, P + 1], [1, P - 1], [1, P - 1])):
+        n = len(row)
+        tw = ntt.Domain(n)._butterfly_tables(cpu)[0]
+        log_tile = kernels.ntt_log_tile(n.bit_length() - 1)
+        got = model([row], _table(tw), log_tile,
+                    butterfly=butterfly_unchecked, canonical=False)
+        assert got == [kernel]
+        assert _ints(kernels.ntt_stages_plain(_tensor([row]), tw)) == [plain]
+    rows = [_values(16, 5)]
+    tw = ntt.Domain(16)._butterfly_tables(cpu)[0]
+    assert model(rows, _table(tw), 9, butterfly=butterfly_unchecked) == _ints(
+        kernels.ntt_stages_plain(_tensor(rows), tw))
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

@@ -38,7 +38,7 @@ torch.set_num_threads(1)
 FIXTURES = Path(__file__).parent / "fixtures"
 
 
-WRAPPERS = ("mont_mul", "field_addsub", "padd", "window_fold", "carry_fold")
+WRAPPERS = ("mont_mul", "field_addsub", "padd", "window_fold", "ntt_stages")
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +108,7 @@ def test_gate1_prove_runs_every_round_through_the_kernels(proofs):
     reached every kernel wrapper of the path (on the CPU their plain
     versions; on the card each launches its kernel): the Montgomery
     product, the field add/sub/neg, the point addition, the window fold and
-    the matmul transform's leaf reduction."""
+    the staged transform."""
     _, _, calls, spans = proofs
     assert sorted(spans) == sorted(
         f"prove/{s}" for s in ("witness_synthesis", "wire_ingest",

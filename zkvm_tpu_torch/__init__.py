@@ -13,7 +13,8 @@ Ported so far: the batch Merkle-membership service (its CLI, file formats
 and circuit cache), the CDF debugger, the benches, the PLONK prover and
 compiler (single device), field arithmetic, G1 batch operations, the
 Pippenger MSM, the KZG10 commit key, commitments, SRS setup and openings,
-the NTT (the byte-plane matmul route and the staged butterfly route), the
+the NTT (the staged butterfly route; the byte-plane matmul route kept as
+its cross-check), the
 device-resident polynomial helpers, the batched Poseidon and the Merkle
 tree.
 """

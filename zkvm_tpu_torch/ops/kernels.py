@@ -744,7 +744,18 @@ def ntt_stages(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     (n = 2^L >= 2), natural order in and out, with the [8, n/2] table of
     the powers of the root (the inverse root for the inverse transform,
     whose 1/n scaling is the caller's).  On the card: one launch a pass of
-    `ntt_plan` (three at 2^16, 2^19 and 2^20), each counted."""
+    `ntt_plan` (three at 2^16, 2^19 and 2^20), each counted.
+
+    Contract: every element of `x` and of `tw` is canonical (below r), and
+    so is every element of the result.  The kernel keeps every value
+    canonical between stages, and its first stage pair adds and subtracts
+    the inputs with no product (`csrc/ntt.cu`, `butterfly_one`), where the
+    plain version multiplies every odd operand, by tw[0] = 1 too: outside
+    the contract the two differ, (0, 0, r + 1, 0) giving (1, 2^256 - 1 - r,
+    1, 2^256 - 1) on the card and (1, r - 1, 1, r - 1) here
+    (`tests/test_torch_ntt_design.py`).  Such input is not checked for:
+    `Domain`'s transforms, the only callers on a path, receive products
+    and reductions only (`tests/test_torch_ntt_route.py`)."""
     dev = _mont_operands("ntt_stages", FR, (x, tw))
     n = x.shape[-1]
     if n < 2 or n & (n - 1):

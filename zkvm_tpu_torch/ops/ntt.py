@@ -3,11 +3,20 @@
 Counterpart of `zkvm_tpu/ops/ntt.py`.  `Domain` mirrors
 plonk/src/fft/domain.rs:23-284 (fft/ifft/coset variants with GENERATOR=7
 cosets, vanishing-polynomial helpers, Lagrange coefficients).  Its device
-transforms take the byte-plane matmul route (`ntt_mxu.MXUTransform`); the
-staged butterfly transform (`butterfly_transform`: the `ntt_stages` kernel,
-a few launches of many stages each) stays beside it as a function of its
-own.  Results are exact integers, hence bit-identical between the two
-routes and to the reference for the same domain.
+transforms take the staged butterfly route (`butterfly_transform`: the
+`ntt_stages` kernel, a few launches of many stages each, on every device;
+on the CPU its plain version) and nothing else: a failure of the kernel to
+build or launch fails the transform.  The byte-plane matmul route
+(`ntt_mxu.MXUTransform`, the reference's TPU design) stays in the package
+as the independent cross-check the tests and `chip_smoke.py` hold this
+route against; no path calls it.  Results are exact integers, hence
+bit-identical between the two routes and to the reference for the same
+domain.
+
+The staged route assumes canonical operands (every element < r; see
+`kernels.ntt_stages`): every caller's values are products or reductions,
+which `tests/test_torch_ntt_route.py` holds on the prove, compile, mesh and
+service paths.
 
 Tensors are `[*lead, 8, n]` int32 Montgomery limbs with any number of
 leading batch axes.  A transform runs on its operand's device; tables are
@@ -25,7 +34,6 @@ from . import kernels
 from . import limb_field as lf
 from .kernels import bit_reverse_indices  # noqa: F401  (the reference's name)
 from .limb_field import FR
-from .ntt_mxu import MXUTransform
 
 
 def _scale(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
@@ -129,10 +137,7 @@ class Domain:
 
     # ---- device transforms (Montgomery [*lead, 8, n] tensors) ---------------
     def _run(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        if self.size == 1:
-            return x
-        root = self.group_gen_inv if inverse else self.group_gen
-        return MXUTransform(self.size, root)(x)
+        return butterfly_transform(self, x, inverse)
 
     def fft_device(self, coeffs: torch.Tensor) -> torch.Tensor:
         assert coeffs.shape[-1] == self.size
@@ -215,10 +220,10 @@ class Domain:
 
 def butterfly_transform(domain: Domain, x: torch.Tensor,
                         inverse: bool = False) -> torch.Tensor:
-    """The staged butterfly transform of x [*lead, 8, n] over `domain`:
-    the same function as `Domain._run` by the other route (the `ntt_stages`
-    kernel: the passes of `kernels.ntt_plan`, three at 2^19), without the
-    inverse's 1/n scaling."""
+    """The staged butterfly transform of x [*lead, 8, n] over `domain`,
+    without the inverse's 1/n scaling: every transform of `Domain` (the
+    `ntt_stages` kernel: the passes of `kernels.ntt_plan`, three at 2^19).
+    `x` must be canonical (every element < r)."""
     if domain.size == 1:
         return x
     fwd, inv = domain._butterfly_tables(x.device)

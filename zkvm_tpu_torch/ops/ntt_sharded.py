@@ -18,11 +18,12 @@ Tensors are the port's `[*lead, 8, N]` Montgomery limbs, global on the
 mesh's home device in and out.  On a shard the transformed axis is the last
 one and the other index a leading batch axis: [*lead, n2loc(b), 8, N1(a)]
 for step 1 and [*lead, n1loc(c), 8, N2(b)] for step 4, so each local FFT
-is one `MXUTransform` call (the matmul route of `Domain`) with no transpose
-around it.  The per-shard tables (glue twiddles, coset factors) are built
-on the host once per size and lifted once per shard, in that layout.  Every
-step is exact field arithmetic, so the result equals `Domain`'s bit for
-bit.
+is one `ntt.butterfly_transform` call (the staged route of `Domain`, the
+`ntt_stages` kernel on the shard's device) with no transpose around it.
+The per-shard tables (glue twiddles, coset factors) are built on the host
+once per size and lifted once per shard, in that layout; `Domain` caches
+the local transforms' twiddle tables per device.  Every step is exact field
+arithmetic, so the result equals `Domain`'s bit for bit.
 """
 
 from __future__ import annotations
@@ -34,21 +35,22 @@ import torch
 
 from .. import params
 from . import limb_field as lf
+from . import ntt
 from .collective import Mesh
 from .limb_field import FR
 from .ntt import Domain
-from .ntt_mxu import MXUTransform
 
 _Q = params.FR_MODULUS
 
 
-def _batched_ntt(n: int, inverse: bool) -> MXUTransform:
-    """The n-point transform of steps 1 and 4 (the matmul route): it runs
-    along the last axis of [..., 8, n], batched over every leading axis.
-    `inverse` selects the inverse root; the N^-1 scaling happens once, at
-    the end of the distributed transform."""
+def _batched_ntt(n: int, inverse: bool):
+    """The n-point transform of steps 1 and 4 (the staged route): it runs
+    along the last axis of a contiguous [..., 8, n] on that tensor's
+    device, batched over every leading axis.  `inverse` selects the inverse
+    root; the N^-1 scaling happens once, at the end of the distributed
+    transform."""
     dom = Domain(n)
-    return MXUTransform(n, dom.group_gen_inv if inverse else dom.group_gen)
+    return lambda t: ntt.butterfly_transform(dom, t, inverse)
 
 
 @functools.lru_cache(maxsize=None)

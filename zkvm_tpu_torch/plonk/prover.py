@@ -19,7 +19,8 @@ are `jit` programs; here they are plain functions of the same steps
 (`_round_programs`), challenges and blinders entering as [8, k] Montgomery
 columns.  Every transform is a `Domain` method (`fft_device`,
 `ifft_device`, `coset_fft_device`, `coset_ifft_device`): the one seam
-through which the prover reaches the NTT.  With a mesh
+through which the prover reaches the NTT, the staged route (the
+`ntt_stages` kernel on the card).  With a mesh
 (`ops.collective.Mesh`, whose home is the commit key's device), rounds 1-3
 take the sharded set (`_mesh_round_programs`): distributed 4-step NTTs,
 cross-shard grand-product scans, the sharded quotient and sharded commit
