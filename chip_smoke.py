@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the ten CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the eleven CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
@@ -35,9 +35,17 @@ Phases (any failure exits non-zero; no phase catches its own error):
      2^20, batches 1, 4 and 7, both directions, with the edge values 0, 1,
      r - 1 and R mod r, against its plain version and the matmul route,
      and timed at [4, 8, 2^19] and [1, 8, 2^16]; then ntt_stages at 2^4,
-     2^9, 2^16, 2^19 and mont_mul over Fr on operands in [r, 2^256), which
-     their contracts exclude: whether each equals its plain version there
-     is printed, and fails nothing;
+     2^9, 2^16, 2^19, both directions, and on (0, 0, r + 1, 0), (r, 0, 0,
+     0) and (0, r + 1), on operands in [r, 2^256): it must equal its plain
+     version there too; mont_mul over Fr on such operands, which its
+     contract excludes: whether it equals its plain version is printed;
+     carry_fold at [68, 2^16] and [68, 2^21], fold at [17, 2^16] and [17,
+     2^21]; quotient (the numerator of the quotient round times Z_H^-1, one
+     launch) at 2^8, 2^18 (the service's 8n) and 2^19 (the flagship's),
+     and on a mesh shard's quarter of the 2^19 operands read in place, with
+     the edge values in the first lanes, against its plain version on the
+     card, and at 2^19 against the chain of mont_mul and field_addsub
+     launches it replaced, timed in turns with it;
      padd_ilp (two threads a point on the lazily reduced arithmetic)
      against padd and the plain version at [24, 12, 32768], on p + p and
      on every second lane read in place, and timed in turns with padd;
@@ -92,8 +100,13 @@ Phases (any failure exits non-zero; no phase catches its own error):
      first and warm prove times, the per-round spans averaged over the
      warm proves, verify ms, peak device memory, the device's busy share of
      one warm prove (torch.profiler), the gates and the domain size; then
-     one prove whose every transform operand is checked canonical on the
-     card, the parent's route against this one's in one process (three
+     one prove whose every transform operand and every operand of the
+     quotient kernel is checked canonical on the card, the chain of the
+     quotient round (the parent commit's: mont_mul and field_addsub
+     launches) against the quotient kernel in one process (three warm
+     proves with the kernel, three with the chain, three with the kernel,
+     all byte-identical, each side's walls, spans, device time, busy share
+     and launches), the parent's NTT route against this one's (three
      warm proves on the staged route, three under matmul_route(), three
      staged again, all byte-identical; per route the walls, spans, device
      time, busy share, copies, peak memory and launches), and a compile on
@@ -112,8 +125,10 @@ Phases (any failure exits non-zero; no phase catches its own error):
      tests/fixtures/dryrun_proof_v1.bin, with every transform operand of a
      mesh prove and of the dryruns checked canonical on the card and
      ntt_stages held against its plain version at each of their shapes
-     (the shards' local FFTs); then the parent's route against this one's
-     as in phase 10, over the mesh.  It prints the mesh prove's first and
+     (the shards' local FFTs), and every operand of the shards' quotient
+     kernels checked canonical; then the quotient chain against the kernel
+     and the parent's NTT route against this one's as in phase 10, over the
+     mesh.  It prints the mesh prove's first and
      warm times and spans, the single-device warm prove, the peak device
      memory of the warm mesh proves and each component's ms (the coset pair
      on both routes), each beside the card's name and power limit, and
@@ -143,7 +158,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
      prove and one run of each mesh component) and the first service run
      (compile and 32 proves), reported apart; ntt_stages must be launched
      on the polynomial path, the flagship prove, the mesh and the service
-     run.
+     run, quotient on the flagship prove, the mesh and the service run.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -177,6 +192,7 @@ from zkvm_tpu_torch.merkle import (Item, PoseidonTree,  # noqa: E402
 from zkvm_tpu_torch.native import native_msm  # noqa: E402
 from zkvm_tpu_torch.ops import (g1_ops, kernels, msm, ntt,  # noqa: E402
                                 ntt_mxu, ntt_sharded, poseidon)
+from zkvm_tpu_torch.ops import quotient_kernel as qk  # noqa: E402
 from zkvm_tpu_torch.ops.collective import Mesh  # noqa: E402
 from zkvm_tpu_torch.ops.ntt_sharded import DistributedDomain  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
@@ -234,8 +250,10 @@ WORST_COLUMN = 32 * 256 * 255 * 255
 # a chain of mont_mul_pallas calls that jit fuses (limb_field.mont_pow),
 # padd_pallas_2l, window_fold_pallas, butterfly_pallas, _carry_fold_pallas,
 # _fold_pallas, hades_permute_pallas, padd_pallas_ilp / padd_pallas_ilp2l,
-# and the field additions that jit fuses into every program: add / sub / neg
-# of limb_field, which have no Pallas site of their own)
+# the field additions that jit fuses into every program: add / sub / neg of
+# limb_field, and the quotient round's two jitted programs,
+# quotient_numerator and pointwise_divide, which have no Pallas site of
+# their own)
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -257,12 +275,14 @@ KERNELS = {
                  "zkvm_tpu/ops/pallas_field.py:626"),
     "field_addsub": ("zkvm_tpu_torch/csrc/field_addsub.cu",
                      "zkvm_tpu/ops/limb_field.py:205"),
+    "quotient": ("zkvm_tpu_torch/csrc/quotient.cu",
+                 "zkvm_tpu/ops/quotient_kernel.py:73"),
 }
 # how the port's CUDA kernels are named in a profile
 OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "padd_ilp_kernel", "window_fold_kernel", "ntt_pass_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
-               "field_addsub_kernel")
+               "field_addsub_kernel", "quotient_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
            "padd_comparison", "prove_path", "mesh", "service")
 
@@ -327,9 +347,27 @@ def matmul_route():
         ntt.Domain._run, ntt_sharded._batched_ntt = run, batched
 
 
+@contextlib.contextmanager
+def chain_route():
+    """While it is open, the quotient round runs the chain of mont_mul and
+    field_addsub launches the quotient kernel replaced (the parent commit's
+    round: `quotient_kernel.quotient_chain`) in place of the kernel: the
+    other side of a comparison in one process.  The package's function is
+    put back on exit."""
+    real = kernels.quotient
+    kernels.quotient = qk.quotient_chain
+    try:
+        yield
+    finally:
+        kernels.quotient = real
+
+
 def route(name: str):
-    """The context of a route: "staged" (the package's own) or "matmul"."""
-    return matmul_route() if name == "matmul" else contextlib.nullcontext()
+    """The context of a route: the package's own ("staged" for the NTT,
+    "kernel" for the quotient round), "matmul" (the parent's NTT route) or
+    "chain" (the parent's quotient round)."""
+    return {"matmul": matmul_route, "chain": chain_route}.get(
+        name, contextlib.nullcontext)()
 
 
 def rand_field(spec, shape, rng) -> np.ndarray:
@@ -560,6 +598,8 @@ def phase_parity(rng, dev) -> dict:
 
     phase_parity_ntt(rng, dev, rec)
     phase_parity_hades(rng, dev, rec)
+    # its own generator: the draws of the later phases stay as they were
+    phase_parity_quotient(np.random.default_rng(SEED + 5), dev, rec)
 
     card = card_line()
     for name, r in rec.items():
@@ -832,7 +872,7 @@ NTT_STAGES_BATCHES = (1, 4, 7)
 # timed: the coset fft of four polynomials at 2^19 (the record's shape), one
 # polynomial at 2^16
 NTT_STAGES_TIMED = ((4, 19), (1, 16))
-# inputs in [r, 2^256), outside ntt_stages' contract: printed, not failed
+# inputs in [r, 2^256): ntt_stages must equal its plain version there too
 NON_CANONICAL_SIZES = (4, 9, 16, 19)
 
 
@@ -930,7 +970,7 @@ def phase_parity_ntt(rng, dev, rec) -> None:
         ms = cuda_ms(lambda: kernels.carry_fold(dd), 20)
         plain_ms = cuda_ms(lambda: kernels.carry_fold_plain(dd), 1)
         b = bound((kernels.N_COLUMNS + 8) * lanes * 4,
-                  2 * mont_mul_ops(8) * lanes)
+                  kernels.fold_multiply_adds() * lanes)
         if lanes == 4 * N8:
             rec["carry_fold"] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms,
@@ -958,17 +998,34 @@ def phase_parity_ntt(rng, dev, rec) -> None:
     for j in range(len(edge)):
         if lf.limbs_to_int(host[:, j]) != lf.limbs_to_int(v[:, j]) % Q:
             raise AssertionError(f"fold lane {j} disagrees with the host")
-    # slice shape: the leaves of one 2^16 transform
-    fv = lf.u32_to_tensor(rng.integers(
-        0, 1 << 32, size=(kernels.N_WORDS, N), dtype=np.uint64).astype(
-            np.uint32), dev)
-    err = max(err, max_abs_err(kernels.fold(fv), kernels.fold_plain(fv)))
-    ms = cuda_ms(lambda: kernels.fold(fv), 50)
-    plain_ms = cuda_ms(lambda: kernels.fold_plain(fv), 3)
-    rec["fold"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       shape=f"[17, {N}]",
-                       **bound((kernels.N_WORDS + 8) * N * 4,
-                               2 * mont_mul_ops(8) * N))
+    # slice shapes: the leaves of one 2^16 transform (the record's), and
+    # 2^21 lanes, where the launch does not hide the kernel; the split-fold
+    # is one Montgomery product and one row of a one-word product a lane
+    for lanes in (N, 4 * N8):
+        fv = lf.u32_to_tensor(rng.integers(
+            0, 1 << 32, size=(kernels.N_WORDS, lanes), dtype=np.uint64).astype(
+                np.uint32), dev)
+        err = max(err, max_abs_err(kernels.fold(fv), kernels.fold_plain(fv)))
+        ms = cuda_ms(lambda: kernels.fold(fv), 50)
+        ms = (ms + cuda_ms(lambda: kernels.fold(fv), 50)) / 2
+        plain_ms = cuda_ms(lambda: kernels.fold_plain(fv), 3)
+        b = bound((kernels.N_WORDS + 8) * lanes * 4,
+                  kernels.fold_multiply_adds() * lanes)
+        earlier = bound((kernels.N_WORDS + 8) * lanes * 4,
+                        2 * mont_mul_ops(8) * lanes)
+        log(f"fold at [17, {lanes}]: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by "
+            f"{b['bound_by']} ({b['bound_ms'] / ms:.3f} of it); the bound "
+            f"counting the earlier kernel's two products "
+            f"{earlier['bound_ms']:.5f} ms by {earlier['bound_by']} "
+            f"({earlier['bound_ms'] / ms:.3f} of it)")
+        if lanes == N:
+            rec["fold"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               shape=f"[17, {N}]", **b)
+        else:
+            rec["fold"].update(ms_2_21=ms, bound_ms_2_21=b["bound_ms"])
+        del fv
+    rec["fold"]["max_abs_err"] = err
 
 
 def canonical(t: torch.Tensor) -> bool:
@@ -1011,26 +1068,28 @@ def near(v: int) -> str:
 
 
 def non_canonical_inputs(rng, dev) -> None:
-    """`ntt_stages` and `mont_mul` on operands in [r, 2^256), which their
-    contracts exclude (`kernels.ntt_stages`, `csrc/fr_lazy.cuh`'s `mul`):
-    whether each kernel equals its plain version there, printed, never a
-    failure.  `ntt_stages` at 2^4, 2^9, 2^16 and 2^19, one row, both
-    directions, and on (0, 0, r + 1, 0), the smallest input on which the
-    schedule on the chains differs from the plain version, (r, 0, 0, 0)
-    and (0, r + 1) (`tests/test_torch_ntt_design.py`); `mont_mul`
-    over Fr with both operands in [r, 2^256), (r, r), (2^256 - 1, 2^256 -
-    1) and (r, 2^256 - 1) in its first lanes."""
+    """`ntt_stages` on operands in [r, 2^256), which its contract takes: at
+    2^4, 2^9, 2^16 and 2^19, one row, both directions, and on (0, 0, r + 1,
+    0), (r, 0, 0, 0) and (0, r + 1), it must equal its plain version word
+    for word (the run fails otherwise).  Then `mont_mul`
+    over Fr with both operands in [r, 2^256), which its contract
+    (`csrc/fr_lazy.cuh`'s `mul`) excludes, (r, r), (2^256 - 1, 2^256 - 1)
+    and (r, 2^256 - 1) in its first lanes: whether it equals its plain
+    version there is printed."""
+    differ = []
     for log_n in NON_CANONICAL_SIZES:
         dom = ntt.Domain(1 << log_n)
         x = fr_tensor(above_r(rng, dom.size), dev)[None]
         for inverse, tw in zip((False, True), dom._butterfly_tables(dev)):
             got = kernels.ntt_stages(x, tw)
             want = kernels.ntt_stages_plain(x, tw)
-            log(f"ntt_stages on inputs in [r, 2^256) (outside its contract) "
-                f"at [1, 8, 2^{log_n}], {'inverse' if inverse else 'forward'}"
-                f": equal to the plain version {torch.equal(got, want)}, "
-                f"max_abs_err {max_abs_err(got, want)}; output canonical: "
-                f"kernel {canonical(got)}, plain {canonical(want)}")
+            log(f"ntt_stages on inputs in [r, 2^256) at [1, 8, 2^{log_n}], "
+                f"{'inverse' if inverse else 'forward'}: equal to the plain "
+                f"version {torch.equal(got, want)}, max_abs_err "
+                f"{max_abs_err(got, want)}; output canonical: kernel "
+                f"{canonical(got)}, plain {canonical(want)}")
+            if not torch.equal(got, want):
+                differ.append(f"2^{log_n}")
     for row in ([0, 0, Q + 1, 0], [Q, 0, 0, 0], [0, Q + 1]):
         x = fr_tensor(row, dev)[None]
         tw = ntt.Domain(len(row))._butterfly_tables(dev)[0]
@@ -1038,6 +1097,11 @@ def non_canonical_inputs(rng, dev) -> None:
         want = fr_ints(kernels.ntt_stages_plain(x, tw)[0])
         log(f"ntt_stages on {[near(v) for v in row]}: kernel "
             f"{[near(v) for v in got]}, plain {[near(v) for v in want]}")
+        if got != want:
+            differ.append(str([near(v) for v in row]))
+    if differ:
+        raise AssertionError(f"ntt_stages differs from its plain version on "
+                             f"inputs in [r, 2^256): {differ}")
     top = (1 << 256) - 1
     lanes = 4099
     a, b = above_r(rng, lanes), above_r(rng, lanes)
@@ -1054,6 +1118,94 @@ def non_canonical_inputs(rng, dev) -> None:
         f"{sum(v < Q for v in want)}"
         + "".join(f"; lane {j}: a {a[j]:#x}, b {b[j]:#x}, kernel "
                   f"{got[j]:#x}, plain {want[j]:#x}" for j in differ[:3]))
+
+
+# the quotient kernel's lane counts: a small one, the service's 8n and the
+# flagship's (the last also split over the mesh phase's MESH_SHARDS)
+QUOTIENT_LANES = (1 << 8, 1 << 18, 1 << 19)
+
+
+def quotient_operands(rng, lanes: int, dev):
+    """The 28 canonical [8, lanes] operands of the quotient kernel, the
+    words 0, 1, r - 1 and R mod r in the first lanes of each, and a table
+    of seeded challenges."""
+    ops = []
+    for _ in kernels.QUOTIENT_OPERANDS:
+        x = rand_field(FR, (8, lanes), rng)
+        set_lanes(x, FR, [0, 1, Q - 1, FR.R % Q][:lanes])
+        ops.append(lf.u32_to_tensor(x, dev))
+    chals = dict(zip(qk.CHALLENGES, random_leaves(rng, len(qk.CHALLENGES))))
+    return ops, qk.challenge_table(chals, dev)
+
+
+def phase_parity_quotient(rng, dev, rec) -> None:
+    """quotient against its plain version on the same card tensors, bit for
+    bit, at QUOTIENT_LANES (at 2^8 also against the plain version on a CPU
+    copy), and on each of the MESH_SHARDS parts of the 2^19 operands, read
+    in place (limb rows 2^19 apart); at 2^19 also against the chain of
+    mont_mul and field_addsub launches it replaced, and timed in turns with
+    it: kernel, chain, chain, kernel.  The bound counts the kernel's own
+    multiply-adds (`kernels.quotient_multiply_adds`) and its bytes: 28
+    inputs read, one output written, the table."""
+    err, card = 0, card_line()
+    per_lane = kernels.quotient_multiply_adds()
+    for lanes in QUOTIENT_LANES:
+        ops, table = quotient_operands(rng, lanes, dev)
+        before = kernels.LAUNCHES["quotient"]
+        got = kernels.quotient(ops, table)
+        if kernels.LAUNCHES["quotient"] != before + 1:
+            raise AssertionError("quotient did not launch once")
+        err = max(err, max_abs_err(got, kernels.quotient_plain(ops, table)))
+        if lanes == QUOTIENT_LANES[0]:
+            err = max(err, max_abs_err(got, kernels.quotient_plain(
+                [t.cpu() for t in ops], table.cpu())))
+        b = bound((len(ops) + 1) * 32 * lanes + table.numel() * 4,
+                  per_lane * lanes)
+        ms = cuda_ms(lambda: kernels.quotient(ops, table), 10)
+        plain_ms = cuda_ms(lambda: kernels.quotient_plain(ops, table), 1)
+        log(f"quotient at [8, {lanes}] x {len(ops)} operands: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bound_ms'] / ms:.3f} of it); {card}")
+        if lanes != QUOTIENT_LANES[-1]:
+            continue
+        chain = qk.quotient_chain(ops, table)
+        err = max(err, max_abs_err(got, chain))
+        del chain
+        turns = [ms, cuda_ms(lambda: qk.quotient_chain(ops, table), 3),
+                 cuda_ms(lambda: qk.quotient_chain(ops, table), 3),
+                 cuda_ms(lambda: kernels.quotient(ops, table), 10)]
+        rows = profiled("the quotient chain at 2^19",
+                        lambda: qk.quotient_chain(ops, table), top=4)
+        chain_device_ms = sum(us for _, us, _ in rows) / 1e3
+        part = lanes // MESH_SHARDS
+        shard_ms = []
+        for i in range(MESH_SHARDS):
+            views = [t[:, i * part:(i + 1) * part] for t in ops]
+            got_i = kernels.quotient(views, table)
+            err = max(err, max_abs_err(got_i, got[:, i * part:(i + 1) * part]),
+                      max_abs_err(got_i, kernels.quotient_plain(views, table)))
+            shard_ms.append(cuda_ms(lambda: kernels.quotient(views, table),
+                                    10))
+        bs = bound((len(ops) + 1) * 32 * part + table.numel() * 4,
+                   per_lane * part)
+        log(f"quotient in turns with the chain it replaced at [8, {lanes}] "
+            f"({card}): kernel {turns[0]:.4f} / {turns[3]:.4f} ms, chain "
+            f"{turns[1]:.3f} / {turns[2]:.3f} ms by events (host-paced: "
+            f"its device time {chain_device_ms:.3f} ms), bit for bit; a "
+            f"shard's [8, {part}] read in place "
+            + ", ".join(f"{v:.4f}" for v in shard_ms)
+            + f" ms against a bound of {bs['bound_ms']:.4f} ms by "
+            f"{bs['bound_by']}")
+        rec["quotient"] = dict(
+            ms=(turns[0] + turns[3]) / 2, plain_ms=plain_ms,
+            chain_ms=(turns[1] + turns[2]) / 2,
+            chain_device_ms=chain_device_ms,
+            shard_ms=sum(shard_ms) / len(shard_ms),
+            shard_bound_ms=bs["bound_ms"],
+            multiply_adds_a_lane=per_lane,
+            shape=f"[8, {lanes}] x {len(ops)}", **b)
+    rec["quotient"]["max_abs_err"] = err
 
 
 def hades_bounds(lanes: int) -> dict:
@@ -1925,20 +2077,23 @@ def phase_prove_dryrun(dev) -> None:
         f"refused")
 
 
-AB_PROVES = 3   # warm proves a route takes a turn: staged, matmul, staged
+AB_PROVES = 3   # warm proves a route takes a turn: ours, the parent's, ours
 
 
-def route_ab(label: str, prove, want: bytes) -> None:
-    """The parent's NTT route against this one's, in one process: `prove()`
-    (a warm prove, returning its wall s and proof bytes) AB_PROVES times on
-    the staged route, AB_PROVES times under `matmul_route()`, AB_PROVES
-    times staged again; every proof must equal `want` byte for byte.  For
-    each route: the walls, the spans averaged over its proves, the peak
-    device memory, the launches of its first prove, and one more prove
-    under torch.profiler (device time, busy share, copies)."""
+def route_ab(label: str, prove, want: bytes,
+             sides: tuple = ("staged", "matmul")) -> None:
+    """The parent's route against this one's, in one process: `prove()` (a
+    warm prove, returning its wall s and proof bytes) AB_PROVES times on
+    this route (`sides[0]`), AB_PROVES times on the parent's (`sides[1]`,
+    under `route()`: the NTT's matmul route or the quotient's chain),
+    AB_PROVES times on this one again; every proof must equal `want` byte
+    for byte.  For each route: the walls, the spans averaged over its
+    proves, the peak device memory, the launches of its first prove, and
+    one more prove under torch.profiler (device time, busy share,
+    copies)."""
     card = card_line()
     out = {}
-    for turn, side in enumerate(("staged", "matmul", "staged")):
+    for turn, side in enumerate((sides[0], sides[1], sides[0])):
         r = out.setdefault(side, {"walls": [], "spans": {}, "peak_gib": 0.0})
         with route(side):
             metrics.GLOBAL.reset()
@@ -1981,6 +2136,32 @@ def route_ab(label: str, prove, want: bytes) -> None:
             f"{r['launches']}")
     log(f"{label}: the {3 * AB_PROVES} proofs of both routes equal byte for "
         f"byte")
+
+
+@contextlib.contextmanager
+def quotient_operands_checked(seen: dict):
+    """While it is open, every operand of the quotient kernel (on one device
+    and on each mesh shard) and its table must be canonical, which
+    `kernels.quotient` assumes (checked on the card); `seen` counts the
+    calls by lanes."""
+    real = kernels.quotient
+
+    def checked(operands, table):
+        for name, t in zip(kernels.QUOTIENT_OPERANDS, operands):
+            if not canonical(t):
+                raise AssertionError(f"the quotient operand {name} "
+                                     f"{tuple(t.shape)} has an element >= r")
+        if not canonical(table.T):
+            raise AssertionError("the quotient's table has an entry >= r")
+        lanes = operands[0].shape[-1]
+        seen[lanes] = seen.get(lanes, 0) + 1
+        return real(operands, table)
+
+    kernels.quotient = checked
+    try:
+        yield seen
+    finally:
+        kernels.quotient = real
 
 
 @contextlib.contextmanager
@@ -2061,14 +2242,18 @@ def phase_prove_flagship(dev) -> dict:
         f"share of a warm prove {out['busy_share']:.4f} (device busy "
         f"{busy:.3f} ms over the mean warm wall without the profiler)")
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "ntt_stages", "field_addsub"),
+                                "ntt_stages", "field_addsub", "quotient"),
                      "flagship prove")
     out["launches"] = launches
 
-    with staged_operands({}) as seen:
+    with staged_operands({}) as seen, quotient_operands_checked({}) as qs:
         prover.prove(StdRng(7), circuit)
-    log(f"flagship prove: every transform operand canonical on the card; "
-        f"operands by shape {seen}")
+    log(f"flagship prove: every transform operand and every operand of the "
+        f"quotient kernel canonical on the card; transform operands by "
+        f"shape {seen}; quotient calls by lanes {qs}")
+    route_ab("flagship warm prove, quotient round",
+             lambda: timed_prove(prover, circuit)[:2], proof.to_bytes(),
+             sides=("kernel", "chain"))
     route_ab("flagship warm prove", lambda: timed_prove(prover, circuit)[:2],
              proof.to_bytes())
     # the compile on each route: the same keys
@@ -2295,7 +2480,7 @@ def phase_mesh(rng, dev, fl) -> dict:
 
     # every operand of the staged route on the mesh paths, checked on the
     # card: one warm mesh prove and dryrun_multichip at 2, 4 and 8 shards
-    with staged_operands({}) as seen:
+    with staged_operands({}) as seen, quotient_operands_checked({}) as qs:
         timed_prove(prover, circuit, mesh)
         for shards in DRYRUN_MESH_SHARDS:
             t0 = time.perf_counter()
@@ -2304,7 +2489,12 @@ def phase_mesh(rng, dev, fl) -> dict:
                 f"forest, msm_sharded, DistributedDomain and the mesh prove "
                 f"equal to tests/fixtures/dryrun_proof_v1.bin, verified "
                 f"({time.perf_counter() - t0:.3f} s)")
+    log(f"the mesh paths: every operand of the shards' quotient kernels "
+        f"canonical on the card; calls by lanes {qs}")
     out["ntt_local_err"] = local_transform_parity(seen, dev)
+    route_ab("mesh warm prove, quotient round",
+             lambda: timed_prove(prover, circuit, mesh)[:2], want,
+             sides=("kernel", "chain"))
     route_ab("mesh warm prove", lambda: timed_prove(prover, circuit, mesh)[:2],
              want)
     meshes = [str(mesh)] + [f"{s} logical shards of {dev}"
@@ -2321,7 +2511,7 @@ def phase_mesh(rng, dev, fl) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s")
     require_launched(launches, ("padd", "window_fold", "mont_mul",
                                 "ntt_stages", "field_addsub",
-                                "hades_permute"), "mesh path")
+                                "hades_permute", "quotient"), "mesh path")
     out["launches"] = launches
     return out
 
@@ -2474,8 +2664,8 @@ def phase_service(dev, root: Path) -> dict:
     log(f"launches of the first service run (compile + {SERVICE_LEAVES} "
         f"proves): {launches}")
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
-                                "window_fold", "ntt_stages", "field_addsub"),
-                     "service run")
+                                "window_fold", "ntt_stages", "field_addsub",
+                                "quotient"), "service run")
     shutil.rmtree(work)
     return {"launches": launches}
 
@@ -2657,9 +2847,10 @@ def main() -> int:
     phase_benches(dev)
 
     # launches: the sum of the counted regions, each also given apart; no
-    # single PyTorch call computes any of the ten functions (a Montgomery
+    # single PyTorch call computes any of the eleven functions (a Montgomery
     # product or power on limbs, a curve addition, a permutation over Fr, a
-    # modular addition on limbs), so there is no library time
+    # modular addition on limbs, the quotient's field expression), so there
+    # is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"], fl["launches"],

@@ -71,8 +71,8 @@ def _header_words(fn: str) -> int:
 
 
 def test_header_chains_are_all_parsed():
-    assert sorted(CHAINS) == ["add8", "mad4_carry", "merge9", "shift_mad4",
-                              "sub8", "sub9"]
+    assert sorted(CHAINS) == ["add8", "add8_carry", "mad4_carry", "merge9",
+                              "shift_mad4", "sub8", "sub9"]
     check_operands_all_used(CHAINS)
     # the constants the model takes from Python are the header's
     assert _header_words("r2") == 2 * P
@@ -93,6 +93,8 @@ def test_sources_are_what_the_model_transcribes():
     assert "const uint32_t wj = w(j, i);" in dot_body
     assert "const uint32_t m = e[0] * Fr::NP0;" in dot_body
     assert "if (i == 0 && j == 0) {" in dot_body
+    assert "if (j >= KW && i > 0) continue;" in dot_body
+    assert "template <int K, int KW = K, class A, class W>" in HEADER
     assert "} else if (j == 0) {" in dot_body
     steps = re.findall(r"\b(shift_mad4|mad4_carry|merge9)\(([^;]*)\);|"
                        r"\b([eo]\[N\] = 0);", dot_body)
@@ -175,12 +177,14 @@ def value(w) -> int:
 P_WORDS, P2_WORDS = words(P), words(2 * P)
 
 
-def dot(a, w):
-    """`zk::frl::dot<K>`: `a` the K multiplicands (eight words each),
-    `w(j, i)` word i of the operand scanned against multiplicand j.
-    Returns the nine words and asserts the header's ranges."""
+def dot(a, w, kw=None):
+    """`zk::frl::dot<K, KW>`: `a` the K multiplicands (eight words each),
+    `w(j, i)` word i of the operand scanned against multiplicand j; the
+    operands j >= KW (`kw`, K by default) are one word, which row 0 alone
+    takes.  Returns the nine words and asserts the header's ranges."""
     k_terms = len(a)
-    assert 1 <= k_terms <= 5
+    kw = k_terms if kw is None else kw
+    assert 1 <= kw <= k_terms <= 5
     re_, ro = P_WORDS[0::2], P_WORDS[1::2]
     ev, od = [0] * (N + 1), [0] * (N + 1)
     bound = sum(value(x) for x in a) + P  # of the running value
@@ -188,6 +192,9 @@ def dot(a, w):
     for i in range(N):
         e, o = (od, ev) if i & 1 else (ev, od)
         for j in range(k_terms):
+            if j >= kw and i > 0:
+                assert scanned[j][i] == 0  # a one-word operand
+                continue
             x = a[j]
             xe, xo = x[0::2], x[1::2]
             wj = scanned[j][i]

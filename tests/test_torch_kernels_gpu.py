@@ -307,20 +307,90 @@ def test_butterfly_kernel_matches_plain(cuda, log_n, lead):
         assert torch.equal(got.cpu(), kernels.ntt_stages_plain(x, tw))
 
 
-def test_butterfly_kernel_outside_its_contract(cuda):
-    """On (0, 0, r + 1, 0), outside its contract (canonical operands), the
-    kernel gives what `tests/test_torch_ntt_design.py`'s schedule on the
-    chains gives, (1, 2^256 - 1 - r, 1, 2^256 - 1), not the plain
-    version's (1, r - 1, 1, r - 1)."""
+def _above_r(rng, n):
+    p = lf.FR.modulus
+    return [p + int.from_bytes(rng.bytes(40), "little") % ((1 << 256) - p)
+            for _ in range(n)]
+
+
+def _fr_tensor(values):
+    return lf.u32_to_tensor(np.stack([lf.int_to_limbs(v, 8) for v in values],
+                                     axis=-1), "cpu")
+
+
+@pytest.mark.parametrize("log_n", [4, 9, 16, 19])
+def test_butterfly_kernel_outside_its_contract(cuda, log_n):
+    """On 256-bit words in [r, 2^256), which its contract now takes (the
+    name is older), the kernel equals its plain version word for word,
+    forward and inverse; and on (0, 0, r + 1, 0), (r, 0, 0, 0) and (0, r +
+    1), as `tests/test_torch_ntt_design.py`'s schedule on the chains."""
     from zkvm_tpu_torch.ops import ntt
 
-    p, top = lf.FR.modulus, (1 << 256) - 1
-    x = lf.u32_to_tensor(np.stack([lf.int_to_limbs(v, 8)
-                                   for v in (0, 0, p + 1, 0)], axis=-1), "cpu")
-    tw = ntt.Domain(4)._butterfly_tables(torch.device("cpu"))[0]
-    got = lf.tensor_to_u32(kernels.ntt_stages(x[None].to(cuda), tw.to(cuda)))
-    assert [lf.limbs_to_int(got[0, :, i]) for i in range(4)] == [
-        1, top - p, 1, top]
+    p = lf.FR.modulus
+    cpu = torch.device("cpu")
+    x = _fr_tensor(_above_r(np.random.default_rng(20 + log_n), 1 << log_n))
+    for tw in ntt.Domain(1 << log_n)._butterfly_tables(cpu):
+        got = kernels.ntt_stages(x[None].to(cuda), tw.to(cuda))
+        assert torch.equal(got.cpu(), kernels.ntt_stages_plain(x[None], tw))
+    if log_n == 4:
+        for row, want in (([0, 0, p + 1, 0], [1, p - 1, 1, p - 1]),
+                          ([p, 0, 0, 0], [0, 0, 0, p]),
+                          ([0, p + 1], [1, p - 1])):
+            x = _fr_tensor(row)[None]
+            tw = ntt.Domain(len(row))._butterfly_tables(cpu)[0]
+            got = lf.tensor_to_u32(kernels.ntt_stages(x.to(cuda),
+                                                      tw.to(cuda)))
+            assert [lf.limbs_to_int(got[0, :, i])
+                    for i in range(len(row))] == want
+            assert torch.equal(kernels.ntt_stages(x.to(cuda),
+                                                  tw.to(cuda)).cpu(),
+                               kernels.ntt_stages_plain(x, tw))
+
+
+def _quotient_operands(lanes, seed):
+    """The 28 canonical operands at `lanes` (lanes 0, 1, 2 at 0, 1, r - 1)
+    and a challenge table, on the CPU."""
+    from zkvm_tpu_torch.ops import quotient_kernel as qk
+
+    rng = np.random.default_rng(seed)
+    ops = [_field(lf.FR, (8, lanes), int(rng.integers(1 << 30)))
+           for _ in kernels.QUOTIENT_OPERANDS]
+    edge = _fr_tensor([0, lf.FR.R, lf.FR.modulus - 1])  # 0, 1, r - 1
+    for t in ops:
+        t[:, :3] = edge
+    chals = {n: int.from_bytes(rng.bytes(40), "little") % lf.FR.modulus
+             for n in qk.CHALLENGES}
+    return ops, qk.challenge_table(chals, "cpu")
+
+
+@pytest.mark.parametrize("log_lanes", [8, 18, 19])
+def test_quotient_kernel_matches_plain(cuda, log_lanes):
+    """At the service's 8n (2^18) and the flagship's (2^19): the kernel
+    against its plain version on the card, bit for bit."""
+    ops, table = _quotient_operands(1 << log_lanes, 30 + log_lanes)
+    ops = [t.to(cuda) for t in ops]
+    before = kernels.LAUNCHES["quotient"]
+    got = kernels.quotient(ops, table.to(cuda))
+    assert kernels.LAUNCHES["quotient"] == before + 1
+    assert torch.equal(got, kernels.quotient_plain(ops, table.to(cuda)))
+    if log_lanes == 8:
+        cpu = kernels.quotient_plain([t.cpu() for t in ops], table)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_quotient_kernel_reads_a_shards_slice(cuda):
+    """A mesh shard's part of the flagship's [8, 2^19] operands (one of
+    four: 2^17 lanes whose limb rows are 2^19 apart), read in place."""
+    ops, table = _quotient_operands(1 << 19, 50)
+    ops = [t.to(cuda) for t in ops]
+    table = table.to(cuda)
+    whole = kernels.quotient(ops, table)
+    for shard in range(4):
+        part = [t[:, shard << 17:(shard + 1) << 17] for t in ops]
+        assert part[0].stride() == (1 << 19, 1)
+        got = kernels.quotient(part, table)
+        assert torch.equal(got, whole[:, shard << 17:(shard + 1) << 17])
+        assert torch.equal(got, kernels.quotient_plain(part, table))
 
 
 def _columns(seed, lanes):
@@ -339,11 +409,14 @@ def test_carry_fold_kernel_matches_plain(cuda):
     assert torch.equal(got.cpu(), kernels.carry_fold_plain(d))
 
 
-def test_fold_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("lanes", [1027, 65536, 1 << 21])
+def test_fold_kernel_matches_plain(cuda, lanes):
     rng = np.random.default_rng(16)
-    w = rng.integers(0, 1 << 32, size=(17, 1027), dtype=np.uint64).astype(
+    w = rng.integers(0, 1 << 32, size=(17, lanes), dtype=np.uint64).astype(
         np.uint32)
     w[:, 0] = 0xFFFFFFFF
+    w[:, 1] = 0
+    w[:8, 2] = lf.int_to_limbs(lf.FR.modulus - 1, 8)  # lo = r - 1
     limbs = lf.u32_to_tensor(w, "cpu")
     got = kernels.fold(limbs.to(cuda))
     assert torch.equal(got.cpu(), kernels.fold_plain(limbs))

@@ -32,6 +32,7 @@ transforms take two, three and more passes), and equals
 `zkvm_tpu`'s staged transform and `Domain.fft_device`, bit for bit.
 """
 
+import functools
 import inspect
 import re
 from pathlib import Path
@@ -42,7 +43,8 @@ import pytest
 import torch
 
 from ptx_model import calls, function_body
-from test_torch_hades_design import add_r, mul, reduce_r, run_chain
+from test_torch_hades_design import (add_r, dot, mul, reduce_dot, reduce_r,
+                                     run_chain)
 from test_torch_hades_design import value as words_value
 from test_torch_hades_design import words
 from zkvm_tpu.ops import ntt as rntt
@@ -57,6 +59,7 @@ R = 1 << 256
 M32 = 0xFFFFFFFF
 NP_FULL = (-pow(P, -1, R)) % R
 SOURCE = (Path(kernels.CSRC) / "ntt.cu").read_text()
+FOLD = (Path(kernels.CSRC) / "ntt_fold.cu").read_text()
 HEADER = (Path(kernels.CSRC) / "fr_lazy.cuh").read_text()
 P_WORDS = words(P)
 
@@ -73,13 +76,28 @@ def test_kernel_source_is_what_the_model_transcribes():
     assert calls(bf, "butterfly_one") == ["x, y"]
     one = function_body(SOURCE, "butterfly_one")
     assert re.findall(r"zk::frl::(\w+)\(([^;]*)\);", one) == [
-        ("sub_r", "d, y"), ("add_r", "x, y")]
+        ("sub_r", "d, y"), ("add_carry_r", "x, y")]
     assert "for (int i = 0; i < N; ++i) d[i] = x[i];" in one
     assert "for (int i = 0; i < N; ++i) y[i] = d[i];" in one
+    unit = function_body(SOURCE, "butterfly_unit")
+    assert re.findall(r"(?:zk::frl::)?(\w+)\(([^;]*)\);", unit) == [
+        ("reduce_words", "y"), ("butterfly_one", "x, y")]
     sub = function_body(HEADER, "sub_r")
     assert "const uint32_t borrow = sub8(x, c);" in sub
     assert "for (int i = 0; i < N; ++i) k[i] = Fr::p(i) & borrow;" in sub
     assert calls(sub, "add8") == ["x, k"]
+    add = " ".join(function_body(HEADER, "add_carry_r").split())
+    assert "const uint32_t carry = add8_carry(x, c);" in add
+    assert "k[i] = Fr::p(i); d[i] = x[i];" in add
+    assert "d[N] = carry;" in add
+    assert "const uint32_t borrow = sub9(d, k);" in add
+    assert "x[i] = borrow ? x[i] : d[i];" in add
+    red = " ".join(function_body(HEADER, "reduce_words").split())
+    assert "for (int pass = 0; pass < 2; ++pass) {" in red
+    assert "for (int i = 0; i < N; ++i) k[i] = Fr::p(i);" in red
+    assert "for (int i = 0; i < N; ++i) d[i] = x[i];" in red
+    assert "const uint32_t borrow = sub8(d, k);" in red
+    assert "x[i] = borrow ? x[i] : d[i];" in red
     kernel = SOURCE[SOURCE.index("ntt_pass_kernel("):
                     SOURCE.index('extern "C"')]
     for line in (
@@ -140,8 +158,9 @@ def test_kernel_source_is_what_the_model_transcribes():
             "dst[l * n + p] = tile[l * E + (row << c) + col];"):
         assert line in " ".join(kernel.split()), line
     # the first stage pair: three butterflies whose twiddle is tw[0] = 1
-    assert re.findall(r"butterfly_one\(([^;]*)\);", kernel) == [
+    assert re.findall(r"butterfly_unit\(([^;]*)\);", kernel) == [
         "x[0], x[1]", "x[2], x[3]", "x[0], x[2]"]
+    assert "butterfly_one(" not in kernel
     assert re.findall(r"butterfly\(([^;]*)\);", kernel) == [
         "x[1], x[3], w", "x[0], x[1], w[0]", "x[2], x[3], w[0]",
         "x[0], x[2], w[1]", "x[1], x[3], w[2]", "x, y, w"]
@@ -159,67 +178,92 @@ def test_kernel_source_is_what_the_model_transcribes():
 # The butterfly: the chains executed, and the same values in integers
 # -----------------------------------------------------------------------------
 
-def sub_r(x, c):
-    """`zk::frl::sub_r`, transcribed; x, c canonical."""
-    assert words_value(x) < P and words_value(c) < P
+def sub_r(x, c, canonical=True):
+    """`zk::frl::sub_r`, transcribed; c canonical, x canonical unless
+    `canonical` is false (any eight words: the reference's sub, x - c where
+    x >= c, else x - c + r)."""
+    want = words_value(x) - words_value(c)
+    assert words_value(c) < P and (words_value(x) < P or not canonical)
     scalars, _ = run_chain("sub8", x, c)
     borrow = scalars["mask"]
     assert borrow in (0, M32)
     _, wrapped = run_chain("add8", x, [k & borrow for k in P_WORDS])
     assert wrapped == bool(borrow)  # the carry out cancels the borrow
-    assert words_value(x) < P
+    assert words_value(x) == (want + P if want < 0 else want)
 
 
-def butterfly_ptx(x: int, y: int, w: int | None) -> tuple[int, int]:
-    """`butterfly` of ntt.cu on the header's chains; `butterfly_one` where
-    w is None (the twiddle 1, no product)."""
-    assert x < P and y < P and (w is None or w < P)
+def add_carry_r(x, c):
+    """`zk::frl::add_carry_r`, transcribed: x any eight words, c canonical;
+    the reference's add, x + c less r where that is r or more."""
+    want = words_value(x) + words_value(c)
+    assert words_value(c) < P
+    scalars, _ = run_chain("add8_carry", x, c)
+    carry = scalars["carry"]
+    assert carry == want >> 256
+    d = list(x) + [carry]
+    scalars, _ = run_chain("sub9", d, P_WORDS)
+    assert scalars["mask"] in (0, M32)
+    if not scalars["mask"]:
+        assert d[8] == 0  # the difference fits eight words
+        x[:] = d[:8]
+    assert words_value(x) == (want - P if want >= P else want)
+
+
+def reduce_words(x):
+    """`zk::frl::reduce_words`, transcribed: any eight words, canonical."""
+    v = words_value(x)
+    for _ in range(2):
+        d = list(x)
+        scalars, _ = run_chain("sub8", d, P_WORDS)
+        assert scalars["mask"] in (0, M32)
+        if not scalars["mask"]:
+            x[:] = d
+    assert words_value(x) == v % P
+
+
+def butterfly_ptx(x: int, y: int, w: int | None,
+                  canonical: bool = True) -> tuple[int, int]:
+    """`butterfly` of ntt.cu on the header's chains; `butterfly_unit` where
+    w is None (the twiddle 1, no product).  x and y canonical, unless
+    `canonical` is false: any 256-bit words."""
+    assert (x < P and y < P) or not canonical
+    assert w is None or w < P
+    t = words(y)
     if w is None:
-        t = words(y)
+        reduce_words(t)                  # what the product by R mod r gives
     else:
-        t = mul(words(w), words(y))      # the twiddle is the multiplicand
-        assert words_value(t) * 1000 < 1453 * P
+        t = mul(words(w), t)             # the twiddle is the multiplicand
+        assert words_value(t) * 1000 < 1453 * P or not canonical
+        assert words_value(t) < 2 * P    # any y: below w y / R + r
         reduce_r(t)
     d = words(x)
-    sub_r(d, t)
+    sub_r(d, t, canonical)
     xs = words(x)
-    add_r(xs, t)
+    add_carry_r(xs, t)
+    if canonical:
+        assert words_value(xs) < P and words_value(d) < P
     return words_value(xs), words_value(d)
 
 
-def butterfly_int(x: int, y: int, w: int | None) -> tuple[int, int]:
+def butterfly_int(x: int, y: int, w: int | None,
+                  canonical: bool = True) -> tuple[int, int]:
     """The same values in integers: `mul` returns the exact Montgomery
-    quotient (w y + m r) / R, below 1.453 r for canonical operands; w None
-    is `butterfly_one`'s twiddle 1."""
-    assert x < P and y < P and (w is None or w < P)
+    quotient (w y + m r) / R, below 1.453 r for canonical operands (2 r for
+    any y); w None is `butterfly_unit`'s twiddle 1, y mod r.  The sum less
+    r where it is r or more, the difference plus r where it is negative."""
+    assert (x < P and y < P) or not canonical
+    assert w is None or w < P
     if w is None:
-        return (x + y) % P, (x - y) % P
-    prod = w * y
-    t = (prod + (prod * NP_FULL % R) * P) // R
-    assert t * 1000 < 1453 * P
-    if t >= P:
-        t -= P
-    return (x + t) % P, (x - t) % P
-
-
-def butterfly_unchecked(x: int, y: int, w: int | None) -> tuple[int, int]:
-    """`butterfly_ptx` on words as they come, no range asserted: what the
-    kernel does with an operand in [r, 2^256), which its contract
-    excludes.  `add_r` drops the carry out of 2^256 and subtracts r at most
-    once; `sub_r` adds r back once after a borrow."""
-    if w is None:
-        t = words(y)
+        t = y % P
     else:
-        t = mul(words(w), words(y))      # any y: below w y / R + r < 2r
-        reduce_r(t)
-    d = words(x)
-    scalars, _ = run_chain("sub8", d, t)
-    run_chain("add8", d, [k & scalars["mask"] for k in P_WORDS])
-    xs = words(x)
-    run_chain("add8", xs, t)
-    e = list(xs)
-    scalars, _ = run_chain("sub8", e, P_WORDS)
-    return words_value(xs if scalars["mask"] else e), words_value(d)
+        prod = w * y
+        t = (prod + (prod * NP_FULL % R) * P) // R
+        assert t * 1000 < 1453 * P or not canonical
+        assert t < 2 * P
+        if t >= P:
+            t -= P
+    plus = x + t - P if x + t >= P else x + t
+    return plus, x - t if x >= t else x - t + P
 
 
 EDGE = [0, 1, P - 1, R % P, (P + 1) // 2]
@@ -237,6 +281,27 @@ def test_sub_r_at_its_edges():
         x = words(a)
         sub_r(x, words(c))
         assert words_value(x) == (a - c) % P
+    # on any eight words x it is the reference's sub (`limb_field.sub`)
+    for a, c in ((P, 0), (P, P - 1), (R - 1, 0), (R - 1, P - 1),
+                 (P + 1, P - 1), (2 * P, 1)):
+        x = words(a)
+        sub_r(x, words(c), canonical=False)
+
+
+def test_add_carry_r_and_reduce_words_at_their_edges():
+    """The carry-keeping add on sums across 2^256, and the two conditional
+    subtractions on words up to 2^256 - 1; on canonical operands the add is
+    `add_r`."""
+    for a, c in ((R - 1, P - 1), (R - 1, 0), (R - P, P - 1), (R - P - 1, 1),
+                 (P, 0), (2 * P, P - 1), (0, 0), (P - 1, P - 1), (P - 1, 1)):
+        x = words(a)
+        add_carry_r(x, words(c))
+        if a < P:
+            y = words(a)
+            add_r(y, words(c))
+            assert y == x
+    for v in (0, P - 1, P, 2 * P - 1, 2 * P, R - 1, R % P):
+        reduce_words(words(v))
 
 
 # -----------------------------------------------------------------------------
@@ -462,32 +527,86 @@ def test_schedule_on_the_chains_equals_plain(log_n, log_tile):
         assert got == _ints(kernels.ntt_stages_plain(x, tw))
 
 
-def test_outside_its_contract_the_kernel_differs_from_plain():
-    """`kernels.ntt_stages` assumes canonical operands.  Its first stage
-    pair adds and subtracts its inputs with no product, where the plain
-    version multiplies the odd operand by tw[0] = 1 and so reduces it: the
-    smallest input that shows the difference is n = 4, (0, 0, r + 1, 0),
-    for which the schedule on the chains gives (1, 2^256 - 1 - r, 1, 2^256
-    - 1) and the plain version (1, r - 1, 1, r - 1).  (r, 0, 0, 0) passes
-    r through to both alike; at n = 2 the one stage takes a product and
-    agrees.  `chip_smoke.py` prints the card's result on the same inputs.
-    Inside the contract the same unchecked chains give the plain version."""
+def above_r(rng, n: int) -> list[int]:
+    """n values drawn from [r, 2^256), which no canonical element takes."""
+    return [P + int.from_bytes(rng.bytes(40), "little") % (R - P)
+            for _ in range(n)]
+
+
+def _reference(x: torch.Tensor, n: int, inverse: bool) -> np.ndarray:
+    """zkvm_tpu's staged transform of one row, in its layout."""
+    brev_r, stages_r, fwd_r, inv_r = rntt.Domain(n)._butterfly_tables()
+    return np.asarray(rntt._ntt_impl_jnp(
+        jnp.asarray(lf.to_reference(x, FR)), brev_r, *stages_r,
+        inv_r if inverse else fwd_r))
+
+
+def test_outside_its_contract_the_kernel_differs_from_plain(monkeypatch):
+    """Its name is from before the repair of `csrc/ntt.cu`, when the kernel
+    differed from its plain version on input in [r, 2^256); the test now
+    holds that it does not.  The first stage pair's butterflies by tw[0] =
+    1 take no product: they used to add and subtract the odd operand as it
+    came, where the plain version (like the reference) multiplies it by 1
+    and so reduces it, and the kernel's add dropped the carry out of 2^256
+    where the reference's keeps it.  On (0, 0, r + 1, 0), the smallest
+    input that showed it, the schedule gave (1, 2^256 - 1 - r, 1, 2^256 -
+    1) against the plain version's (1, r - 1, 1, r - 1).  Now
+    `butterfly_unit` brings the odd operand below r and `add_carry_r` keeps
+    the carry, and the schedule on the chains gives the plain version's
+    words, which are `zkvm_tpu`'s `Domain.fft_device`'s (its staged route),
+    on that row, (r, 0, 0, 0) (a non-canonical value passes a subtraction:
+    (0, 0, 0, r)), (0, r + 1), rows of 2^256 - 1 and a mixed row."""
+    monkeypatch.setenv("ZKVM_NTT_IMPL", "butterfly")
     cpu = torch.device("cpu")
-    for row, kernel, plain in (
-            ([0, 0, P + 1, 0], [1, R - 1 - P, 1, R - 1], [1, P - 1, 1, P - 1]),
-            ([P, 0, 0, 0], [0, 0, 0, P], [0, 0, 0, P]),
-            ([0, P + 1], [1, P - 1], [1, P - 1])):
+    top = R - 1
+    for row, plain in (
+            ([0, 0, P + 1, 0], [1, P - 1, 1, P - 1]),
+            ([P, 0, 0, 0], [0, 0, 0, P]),
+            ([0, P + 1], [1, P - 1]),
+            ([top] * 4, None), ([top] * 2, None),
+            ([top, P, 2 * P, top - 1, 0, R % P, P - 1, P + 1], None)):
         n = len(row)
+        x = _tensor([row])
         tw = ntt.Domain(n)._butterfly_tables(cpu)[0]
+        want = _ints(kernels.ntt_stages_plain(x, tw))
+        if plain is not None:
+            assert want == [plain]
         log_tile = kernels.ntt_log_tile(n.bit_length() - 1)
         got = model([row], _table(tw), log_tile,
-                    butterfly=butterfly_unchecked, canonical=False)
-        assert got == [kernel]
-        assert _ints(kernels.ntt_stages_plain(_tensor([row]), tw)) == [plain]
-    rows = [_values(16, 5)]
-    tw = ntt.Domain(16)._butterfly_tables(cpu)[0]
-    assert model(rows, _table(tw), 9, butterfly=butterfly_unchecked) == _ints(
-        kernels.ntt_stages_plain(_tensor(rows), tw))
+                    butterfly=functools.partial(butterfly_ptx,
+                                                canonical=False),
+                    canonical=False)
+        assert got == want
+        ref = rntt.Domain(n).fft_device(jnp.asarray(lf.to_reference(x[0],
+                                                                    FR)))
+        assert (lf.to_reference(kernels.ntt_stages_plain(x, tw)[0], FR)
+                == np.asarray(ref)).all()
+
+
+@pytest.mark.parametrize("log_n", [4, 9])
+def test_schedule_on_words_in_r_to_2_256_equals_plain_and_reference(
+        log_n, monkeypatch):
+    """Seeded rows in [r, 2^256), forward and inverse, over the kernel's
+    tiles and tiles of 2^5 (later passes then take non-canonical even
+    operands): the schedule, on the chains at 2^4 and in integers at 2^9,
+    equals the plain version and `zkvm_tpu`'s staged transform."""
+    monkeypatch.setenv("ZKVM_NTT_IMPL", "butterfly")
+    n = 1 << log_n
+    rows = [above_r(np.random.default_rng(60 + log_n), n)]
+    x = _tensor(rows)
+    bf = butterfly_ptx if log_n == 4 else butterfly_int
+    bf = functools.partial(bf, canonical=False)
+    for inverse, tw in zip((False, True),
+                           ntt.Domain(n)._butterfly_tables(
+                               torch.device("cpu"))):
+        want = kernels.ntt_stages_plain(x, tw)
+        for log_tile in (kernels.ntt_log_tile(log_n), 5):
+            assert model(rows, _table(tw), log_tile, butterfly=bf,
+                         canonical=False) == _ints(want), log_tile
+        assert (lf.to_reference(want[0], FR)
+                == _reference(x[0], n, inverse)).all()
+    ref = rntt.Domain(n).fft_device(jnp.asarray(lf.to_reference(x[0], FR)))
+    assert (_reference(x[0], n, False) == np.asarray(ref)).all()
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
@@ -498,3 +617,56 @@ def test_wrapper_on_cpu_is_the_plain_version():
         assert torch.equal(kernels.ntt_stages(x, tw),
                            kernels.ntt_stages_plain(x, tw))
     assert kernels.LAUNCHES["ntt_stages"] == before  # the CPU launches none
+
+
+# -----------------------------------------------------------------------------
+# fold and carry_fold: the split-fold of ntt_fold.cu
+# -----------------------------------------------------------------------------
+
+K1, K2 = (lf.limbs_to_int(k) for k in (kernels.K1, kernels.K2))
+
+
+def test_fold_source_is_what_the_model_transcribes():
+    body = " ".join(function_body(FOLD, "split_fold").split())
+    for line in ("c1[i] = zk::Fr::k1(i);", "c2[i] = zk::Fr::k2(i);",
+                 "lo[i] = v[i];",
+                 "zk::frl::dot<2, 1>( t, [&](int j) { return j ? c2 : c1; }, "
+                 "[&](int j, int i) { return j ? v[2 * N] : v[N + i]; });"):
+        assert line in body, line
+    assert re.findall(r"zk::frl::(reduce_dot|reduce_words|add_r)\(([^;]*)\);",
+                      body) == [("reduce_dot", "r, t"), ("reduce_words", "lo"),
+                                ("add_r", "r, lo")]
+    for kernel in ("carry_fold_kernel(", "fold_kernel("):
+        part = FOLD[FOLD.index(kernel):]
+        assert calls(part[:part.index("\n}\n")], "split_fold") == ["r, v"]
+
+
+def split_fold(v: int) -> int:
+    """`split_fold` of ntt_fold.cu on the header's chains: the 17 words v =
+    lo + 2^256 mid + 2^512 hi; dot<2, 1> with K1 and K2 as the
+    multiplicands, mid and the one word hi scanned, reduced; lo mod r; their
+    sum."""
+    lo, mid, hi = words(v % R), words(v >> 256 & (R - 1)), words(v >> 512)
+    t = dot([words(K1), words(K2)], lambda j, i: (hi if j else mid)[i], kw=1)
+    assert words_value(t) < K1 + (1 << 31) + P < 2 * P
+    r = reduce_dot(t)
+    reduce_words(lo)
+    add_r(r, lo)
+    return words_value(r)
+
+
+def test_fold_reduction_on_the_chains_equals_plain():
+    """Edge words: lo, mid at 0, r - 1, r, 2^32 - 1, 2^256 - 1 (and 2r for
+    lo), hi at 0, 1 and its largest, 2^32 - 1; and seeded words."""
+    edges = (0, P - 1, P, (1 << 32) - 1, R - 1)
+    vals = [lo + (mid << 256) + (hi << 512)
+            for lo in edges + (2 * P,) for mid in edges
+            for hi in (0, 1, (1 << 32) - 1)]
+    rng = np.random.default_rng(71)
+    vals += [int.from_bytes(rng.bytes(68), "little") for _ in range(8)]
+    limbs = np.stack([lf.int_to_limbs(v, kernels.N_WORDS) for v in vals],
+                     axis=-1)
+    plain = kernels.fold_plain(lf.u32_to_tensor(limbs, "cpu"))
+    host = lf.tensor_to_u32(plain)
+    for j, v in enumerate(vals):
+        assert split_fold(v) == lf.limbs_to_int(host[:, j]) == v % P

@@ -1,6 +1,6 @@
 // Device arithmetic over the BLS12-381 scalar field Fr (8 x 32-bit limbs)
-// and base field Fq (12 x 32-bit limbs), and the split-fold reduction of the
-// matmul NTT.
+// and base field Fq (12 x 32-bit limbs), and the constants of the matmul
+// NTT's split-fold (ntt_fold.cu).
 //
 // Elements are little-endian uint32 limbs in Montgomery form with
 // R = 2^(32 N), held in registers.  Every function returns a fully reduced
@@ -82,43 +82,6 @@ __device__ __forceinline__ void reduce_once(uint32_t* r, const uint32_t* s,
   for (int j = 0; j < F::N; ++j) r[j] = use_d ? d[j] : s[j];
 }
 
-// r = (a + b) mod p; r may alias a or b.
-template <class F>
-__device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
-                                   const uint32_t* b) {
-  uint32_t s[F::N];
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) {
-    uint64_t v = (uint64_t)a[j] + b[j] + c;
-    s[j] = (uint32_t)v;
-    c = v >> 32;
-  }
-  reduce_once<F>(r, s, (uint32_t)c);
-}
-
-// r = (a - b) mod p; r may alias a or b.
-template <class F>
-__device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
-                                   const uint32_t* b) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) {
-    uint64_t v = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  const uint32_t mask = 0u - borrow;  // add p back after an underflow
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) {
-    uint64_t v = (uint64_t)d[j] + (F::p(j) & mask) + c;
-    r[j] = (uint32_t)v;
-    c = v >> 32;
-  }
-}
-
 // r = a * b * R^{-1} mod p (CIOS, one word of b per outer step); r may
 // alias a or b.  Every 64-bit sum below is at most (2^32-1)^2 + 2(2^32-1).
 template <class F>
@@ -154,35 +117,6 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
     t[N] = t[N + 1] + (uint32_t)(s >> 32);
   }
   reduce_once<F>(r, t, t[N]);  // t < 2p
-}
-
-// r = v mod r for a 17-word value v = lo + 2^256 mid + 2^512 hi (lo, mid of
-// 8 words, hi of one): the split-fold of the reference's `_fold_body`
-// (zkvm_tpu/ops/ntt_mxu.py), lo mod r + mid * 2^256 + hi * 2^512.
-//   * lo < 2^256 < 3r, so two conditional subtractions reduce it;
-//   * mid is ANY 256-bit value, not below r.  The CIOS product still lands
-//     below 2r, as `mont_mul`'s closing reduce_once needs: with a < R and
-//     the constant b < r, (a b + m r) / R < (R r + R r) / R = 2r.  So the
-//     unreduced word vector goes in as `a` and the constant as `b`.
-__device__ __forceinline__ void split_fold(uint32_t* r, const uint32_t* v) {
-  constexpr int N = Fr::N;
-  uint32_t lo[N], k[N], t[N], hi[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) lo[j] = v[j];
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) reduce_once<Fr>(lo, lo, 0u);
-#pragma unroll
-  for (int j = 0; j < N; ++j) k[j] = Fr::k1(j);
-  mont_mul<Fr>(t, v + N, k);
-  add<Fr>(lo, lo, t);
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    k[j] = Fr::k2(j);
-    hi[j] = 0;
-  }
-  hi[0] = v[2 * N];
-  mont_mul<Fr>(t, hi, k);
-  add<Fr>(r, lo, t);
 }
 
 }  // namespace zk

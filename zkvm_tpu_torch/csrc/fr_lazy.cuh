@@ -1,8 +1,10 @@
 // Carry-flag arithmetic over the BLS12-381 scalar field Fr for the Hades
-// permutation (hades.cu), the staged NTT (ntt.cu) and the Fr chain of
-// mont_mul.cu: the Montgomery product, the Montgomery DOT product that one
-// row of the MDS matrix is, and the few reductions and modular additions
-// around them.  The other kernels keep field.cuh's functions.
+// permutation (hades.cu), the staged NTT (ntt.cu), the Fr chain of
+// mont_mul.cu, the NTT's leaf reductions (ntt_fold.cu) and the quotient
+// numerator (quotient.cu): the Montgomery product, the Montgomery DOT
+// product that one row of the MDS matrix is, and the few reductions and
+// modular additions around them.  The other kernels keep field.cuh's
+// functions.
 //
 // What the card offers a 256-bit carry chain is its carry flag and its
 // register file (see fq_lazy.cuh, whose schedule this follows): operand
@@ -142,6 +144,26 @@ __device__ __forceinline__ void add8(uint32_t* r, const uint32_t* b) {
         "r"(b[6]), "r"(b[7]));
 }
 
+// r += b over eight words; returns the carry out of 2^256 (0 or 1).
+__device__ __forceinline__ uint32_t add8_carry(uint32_t* r,
+                                               const uint32_t* b) {
+  uint32_t carry;
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]),
+        "+r"(r[5]), "+r"(r[6]), "+r"(r[7]), "=r"(carry)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+  return carry;
+}
+
 // r -= b over eight words; returns 0xffffffff after a borrow, else 0.
 __device__ __forceinline__ uint32_t sub8(uint32_t* r, const uint32_t* b) {
   uint32_t mask;
@@ -203,8 +225,48 @@ __device__ __forceinline__ void add_r(uint32_t* x, const uint32_t* c) {
   reduce_r(x);
 }
 
+// Any eight words -> the canonical value: 2^256 < 2.21 r, so two
+// conditional subtractions of r.  What a Montgomery product by R mod r
+// (the twiddle 1) gives.
+__device__ __forceinline__ void reduce_words(uint32_t* x) {
+  uint32_t k[N], d[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) k[i] = Fr::p(i);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = x[i];
+    const uint32_t borrow = sub8(d, k);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : d[i];
+  }
+}
+
+// x = x + c, less r once where the sum is r or more, its carry out of 2^256
+// kept: the reference's `limb_field.add` step for step, on ANY eight words
+// x and a canonical c (the sum is below 2^256 + r, so the difference fits
+// eight words).  r comes off the nine-word sum (carry : x), whose borrow
+// says the sum is below r.  For canonical x it equals `add_r`.  The staged
+// NTT's add (ntt.cu), where an input outside [0, r) reaches an even
+// operand.
+__device__ __forceinline__ void add_carry_r(uint32_t* x, const uint32_t* c) {
+  uint32_t k[N], d[N + 1];
+  const uint32_t carry = add8_carry(x, c);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    k[i] = Fr::p(i);
+    d[i] = x[i];
+  }
+  d[N] = carry;
+  const uint32_t borrow = sub9(d, k);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : d[i];
+}
+
 // x = x - c mod r for canonical x and c, canonical: r is added back after a
-// borrow, and the carry out of that addition cancels the borrow.
+// borrow, and the carry out of that addition cancels the borrow.  On ANY
+// eight words x and a canonical c it is the reference's `limb_field.sub`:
+// x - c where x >= c, else x - c + r.
 __device__ __forceinline__ void sub_r(uint32_t* x, const uint32_t* c) {
   const uint32_t borrow = sub8(x, c);
   uint32_t k[N];
@@ -216,8 +278,10 @@ __device__ __forceinline__ void sub_r(uint32_t* x, const uint32_t* c) {
 // t (nine words) = (sum_j a(j) b_j) / 2^256 mod r, NOT reduced:
 // t < sum_j a(j) b_j / 2^256 + r, the running value below sum_j a(j) + r.
 // `a(j)` gives the eight words of multiplicand j, `w(j, i)` word i of the
-// operand scanned against it (any word).  K <= 5.
-template <int K, class A, class W>
+// operand scanned against it (any word).  K <= 5.  The operands j >= KW
+// (1 <= KW <= K) are ONE word: only row 0 takes them, the other rows would
+// add products by zero.
+template <int K, int KW = K, class A, class W>
 __device__ __forceinline__ void dot(uint32_t* t, A a, W w) {
   uint32_t re[4], ro[4], ev[N + 1], od[N + 1];
 #pragma unroll
@@ -232,6 +296,7 @@ __device__ __forceinline__ void dot(uint32_t* t, A a, W w) {
     uint32_t* o = (i & 1) ? ev : od;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
+      if (j >= KW && i > 0) continue;  // a one-word operand
       const uint32_t* x = a(j);
       const uint32_t xe[4] = {x[0], x[2], x[4], x[6]};
       const uint32_t xo[4] = {x[1], x[3], x[5], x[7]};

@@ -52,10 +52,21 @@
 //     cost the other passes about what the products saved.
 //   * Every value between stages is canonical (fr_lazy.cuh): the twiddle
 //     w < r is the multiplicand, so w y / R < 1.453 r for any canonical y,
-//     one conditional subtraction makes it canonical, and add_r / sub_r
-//     keep the sum and the difference in [0, r).  The stored words are the
-//     canonical values, which are unique: the transform equals the matmul
-//     route and the reference bit for bit whatever the schedule.
+//     one conditional subtraction makes it canonical, and the add and the
+//     sub keep the sum and the difference in [0, r).  The stored words are
+//     the canonical values, which are unique: the transform equals the
+//     matmul route and the reference bit for bit whatever the schedule.
+//   * On ANY 256-bit input it equals the plain version, that is the
+//     reference's staged transform, which multiplies every odd operand by
+//     its twiddle (tw[0] = 1 too: the product brings it below r) and whose
+//     add keeps the carry out of 2^256 and subtracts r once: a butterfly
+//     by tw[0] with no product first brings its odd operand below r
+//     (`butterfly_unit`: two conditional subtractions), and every add keeps
+//     the carry (`add_carry_r`, r taken off the nine-word sum), so that an
+//     even operand in [r, 2^256) gives the reference's words.  On an H100
+//     that form of the add ran faster than one conditional subtraction
+//     after a dropped carry: the transform at [4, 8, 2^19] no slower than
+//     before the repair (tools/kernel_times.py).
 #include "common.cuh"
 #include "fr_lazy.cuh"
 
@@ -71,24 +82,34 @@ __device__ __forceinline__ long long brev(long long v, int bits) {
               : 0;
 }
 
-// (x, y) <- (x + y, x - y) mod r: the butterfly whose twiddle is 1;
-// canonical x, y and results.
+// (x, y) <- (x + y, x - y) mod r for a canonical y: the reference's add
+// and sub (`limb_field.add` / `sub`), which keep the carry out of 2^256 and
+// subtract r once, so that any eight words x give its words; canonical
+// results for a canonical x.
 __device__ __forceinline__ void butterfly_one(uint32_t* x, uint32_t* y) {
   uint32_t d[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = x[i];
-  zk::frl::sub_r(d, y);   // x - y, canonical
-  zk::frl::add_r(x, y);   // x + y, canonical
+  zk::frl::sub_r(d, y);        // x - y, or x - y + r after a borrow
+  zk::frl::add_carry_r(x, y);  // x + y, less r if it is r or more
 #pragma unroll
   for (int i = 0; i < N; ++i) y[i] = d[i];
 }
 
-// (x, y) <- (x + w y, x - w y) mod r: x, y canonical, w the canonical
-// twiddle; canonical results.
+// The butterfly whose twiddle is tw[0] = 1, with no product: y is first
+// brought to its value mod r, which is what the product by R mod r gives
+// (two conditional subtractions; a canonical y stays as it is).
+__device__ __forceinline__ void butterfly_unit(uint32_t* x, uint32_t* y) {
+  zk::frl::reduce_words(y);
+  butterfly_one(x, y);
+}
+
+// (x, y) <- (x + w y, x - w y) mod r: w the canonical twiddle, y any eight
+// words; canonical results for a canonical x.
 __device__ __forceinline__ void butterfly(uint32_t* x, uint32_t* y,
                                           const uint32_t* w) {
-  zk::frl::mul(y, w, y);  // w < r is the multiplicand: w y / R < 1.453 r
-  zk::frl::reduce_r(y);   // t = w y / R, canonical
+  zk::frl::mul(y, w, y);  // w < r is the multiplicand: w y / R < 2 r for
+  zk::frl::reduce_r(y);   // any y (1.453 r canonical); t = w y / R, canonical
   butterfly_one(x, y);
 }
 
@@ -158,9 +179,9 @@ ntt_pass_kernel(const uint32_t* __restrict__ in, uint32_t* out,
 #pragma unroll
         for (int m = 0; m < 4; ++m) x[m][l] = tile[l * E + a + m * C];
       }
-      butterfly_one(x[0], x[1]);  // stage 0
-      butterfly_one(x[2], x[3]);
-      butterfly_one(x[0], x[2]);  // stage 1
+      butterfly_unit(x[0], x[1]);  // stage 0
+      butterfly_unit(x[2], x[3]);
+      butterfly_unit(x[0], x[2]);  // stage 1
       butterfly(x[1], x[3], w);
 #pragma unroll
       for (int l = 0; l < N; ++l) {

@@ -1,6 +1,6 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Ten kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Eleven kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas` (reads broadcast
                    and strided operands in place)
@@ -25,6 +25,11 @@ Ten kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
                    that `jit` fuses into every program holding them
                    (`limb_field.add` / `sub` / `neg`), with an optional
                    lane mask (reads broadcast and strided operands in place)
+  * `quotient`     replaces the two programs `jit` fuses in the quotient
+                   round (`quotient_kernel.quotient_numerator` and
+                   `pointwise_divide`): the numerator of the gate and
+                   permutation identities times Z_H^-1, lane by lane, in
+                   one launch
 
 They are compiled with `nvcc` (one process per source, all started
 together) and linked into one shared library with a plain C interface on
@@ -33,9 +38,9 @@ of the sources, and bound with ctypes.
 
 `padd`, `padd_ilp`, `window_fold` and the Fq chain of `mont_pow` share the
 lazily reduced carry-flag arithmetic of `csrc/fq_lazy.cuh`; `hades_permute`,
-`ntt_stages` and the Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr
-leaves less room: its ranges are stated there); the other kernels use
-`csrc/field.cuh`.
+`ntt_stages`, `carry_fold`, `fold`, `quotient` and the Fr chain of
+`mont_pow` that of `csrc/fr_lazy.cuh` (Fr leaves less room: its ranges are
+stated there); the other kernels use `csrc/field.cuh`.
 `fq_mul_chain` (one warp, a chain of dependent Fq products) and
 `empty_launch` are measuring probes, not kernels of any path: they have no
 count.
@@ -69,14 +74,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "ntt.cu",
-            "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu")
+            "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu",
+            "quotient.cu")
 _HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
             "ntt_stages": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
-            "padd_ilp": 0, "field_addsub": 0}
+            "padd_ilp": 0, "field_addsub": 0, "quotient": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -152,10 +158,12 @@ def build() -> float:
     lib.zk_hades_permute.argtypes = [_P, _P, _P, _LL, _P]
     lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
     lib.zk_field_addsub.argtypes = [_I, _I, _P, _P, _P, _P, _LL, _LL, _P, _P]
+    lib.zk_quotient.argtypes = [_P, _P, _P, _P, _LL, _P]
     for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
                lib.zk_padd, lib.zk_window_fold, lib.zk_ntt_pass,
                lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
-               lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub):
+               lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub,
+               lib.zk_quotient):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -746,16 +754,17 @@ def ntt_stages(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     whose 1/n scaling is the caller's).  On the card: one launch a pass of
     `ntt_plan` (three at 2^16, 2^19 and 2^20), each counted.
 
-    Contract: every element of `x` and of `tw` is canonical (below r), and
-    so is every element of the result.  The kernel keeps every value
-    canonical between stages, and its first stage pair adds and subtracts
-    the inputs with no product (`csrc/ntt.cu`, `butterfly_one`), where the
-    plain version multiplies every odd operand, by tw[0] = 1 too: outside
-    the contract the two differ, (0, 0, r + 1, 0) giving (1, 2^256 - 1 - r,
-    1, 2^256 - 1) on the card and (1, r - 1, 1, r - 1) here
-    (`tests/test_torch_ntt_design.py`).  Such input is not checked for:
-    `Domain`'s transforms, the only callers on a path, receive products
-    and reductions only (`tests/test_torch_ntt_route.py`)."""
+    Contract: every element of `tw` is canonical (below r); the elements
+    of `x` may be any 256-bit words.  The result equals the plain version's
+    (that is the reference's staged transform) word for word on every
+    input: its butterflies by tw[0] = 1, which take no product, first bring
+    the odd operand below r as the plain version's product by R mod r does,
+    and its additions keep the carry out of 2^256 and subtract r once, as
+    the plain version's do (`csrc/ntt.cu`; `tests/test_torch_ntt_design.py`
+    models it on (0, 0, r + 1, 0), (r, 0, 0, 0) and rows in [r, 2^256)).
+    For canonical `x`, the only input on a path
+    (`tests/test_torch_ntt_route.py`), every element of the result is
+    canonical."""
     dev = _mont_operands("ntt_stages", FR, (x, tw))
     n = x.shape[-1]
     if n < 2 or n & (n - 1):
@@ -875,6 +884,14 @@ def carry_fold(d: torch.Tensor) -> torch.Tensor:
     return _launch_rows("carry_fold", d, dev)
 
 
+def fold_multiply_adds() -> int:
+    """32-bit multiply-adds of one lane of the split-fold of
+    `csrc/ntt_fold.cu` (`fold` and `carry_fold`): one Montgomery product
+    (mid by K1, 272) and the eight limb products of hi's one word by K2,
+    which row 0 alone takes, a low and a high half each."""
+    return dot_multiply_adds(1) + 2 * FR.n_limbs
+
+
 def fold(limbs: torch.Tensor) -> torch.Tensor:
     """[17, ...] int32 carried words -> [8, ...] int32 limbs mod r."""
     dev = _check_rows("fold", limbs, N_WORDS)
@@ -957,4 +974,159 @@ def hades_permute(state: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
         _launch("hades_permute", _lib.zk_hades_permute, state.data_ptr(),
                 consts.data_ptr(), out.data_ptr(), state.shape[-1],
                 _stream(dev))
+    return out
+
+
+# -----------------------------------------------------------------------------
+# quotient
+# -----------------------------------------------------------------------------
+
+# the kernel's operands, in the order of `enum Operand` in csrc/quotient.cu:
+# the fifteen selector and sigma tables, the seven wires (three of them
+# shifted), the grand product and its shift, the public inputs, L1 alpha^2,
+# X over the coset and Z_H^-1
+QUOTIENT_OPERANDS = (
+    "q_m", "q_l", "q_r", "q_o", "q_f", "q_c", "q_arith", "q_range", "q_logic",
+    "q_fixed_group_add", "q_variable_group_add", "s_sigma_1", "s_sigma_2",
+    "s_sigma_3", "s_sigma_4", "a", "b", "c", "d", "a_w", "b_w", "d_w", "z",
+    "z_w", "pi", "l1_alpha_sq", "linear", "v_h_inv")
+# the entries of its challenge table, in the order of `enum Entry`: the seven
+# challenges, each separator s times kappa^i (kappa = s^2), -alpha and the
+# constants (`quotient_kernel.challenge_values`)
+QUOTIENT_TABLE = (
+    "alpha", "beta", "gamma", "range_sep", "logic_sep", "fixed_sep",
+    "var_sep", "range_0", "range_1", "range_2", "range_3", "logic_0",
+    "logic_1", "logic_2", "logic_3", "logic_4", "fixed_0", "fixed_1",
+    "fixed_2", "fixed_3", "var_0", "var_1", "var_2", "neg_alpha", "one",
+    "two", "eighteen", "eighty_one", "neg_eighty_one", "eighty_three",
+    "jubjub_d")
+# the statements the program of a lane is written in
+QUOTIENT_STATEMENTS = ("ld", "tb", "st", "fmul", "fadd", "fsub", "fneg",
+                       "fdot2", "fdot3", "fdot4", "fdot5")
+_PROGRAM = re.compile(r"// ---- the program of a lane ----\n(.*?)"
+                      r"// ---- end of the program of a lane ----", re.S)
+
+
+def _statements(body: str) -> list[tuple[str, list[str]]]:
+    """(name, arguments) of every call in `body`; declarations skipped."""
+    out = []
+    for stmt in re.sub(r"//[^\n]*", "", body).split(";"):
+        stmt = " ".join(stmt.split())
+        if not stmt or stmt.startswith("uint32_t "):
+            continue
+        found = re.fullmatch(r"(\w+)\((.*)\)", stmt)
+        if found is None:
+            raise ValueError(f"quotient.cu: {stmt!r} is not a statement")
+        out.append((found.group(1),
+                    [a.strip() for a in found.group(2).split(",")]))
+    return out
+
+
+def quotient_program():
+    """The program of a lane of `csrc/quotient.cu`, read out of the source:
+    (its statements, {name: (parameters, statements)} of the functions it
+    calls besides QUOTIENT_STATEMENTS).  For the kernel's bound and the CPU
+    model of the kernel; the wrapper does not need it."""
+    text = (CSRC / "quotient.cu").read_text()
+    main = _statements(_PROGRAM.search(text).group(1))
+    functions = {}
+    for name in dict.fromkeys(op for op, _ in main):
+        if name in QUOTIENT_STATEMENTS:
+            continue
+        found = re.search(r"void %s\(([^)]*)\) \{\n(.*?)\n\}" % name, text,
+                          re.S)
+        params = [p.split()[-1].lstrip("*")
+                  for p in found.group(1).split(",")]
+        functions[name] = (params, _statements(found.group(2)))
+    return main, functions
+
+
+def dot_multiply_adds(k: int) -> int:
+    """32-bit multiply-adds of one Montgomery dot product of k pairs over Fr
+    (`fr_lazy.cuh`'s `dot<k>`): k x 64 limb products and 72 of the
+    reduction, a low and a high half each (k = 1: one product, 272)."""
+    n = FR.n_limbs
+    return 2 * ((k + 1) * n * n + n)
+
+
+def quotient_multiply_adds() -> int:
+    """32-bit multiply-adds of one lane of the quotient kernel: its
+    products (`fmul`) and dot products (`fdot<k>`), as the source has them
+    (additions and subtractions are not counted)."""
+    main, functions = quotient_program()
+
+    def count(stmts) -> int:
+        total = 0
+        for op, _ in stmts:
+            if op == "fmul":
+                total += dot_multiply_adds(1)
+            elif op.startswith("fdot"):
+                total += dot_multiply_adds(int(op[4:]))
+            elif op in functions:
+                total += count(functions[op][1])
+        return total
+
+    return count(main)
+
+
+def quotient_plain(operands, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of the quotient kernel: the chain of
+    `quotient_kernel.quotient_numerator` and `pointwise_divide` on the plain
+    product, addition and subtraction (`mont_mul_plain`,
+    `field_addsub_plain`) on the operands' device."""
+    from . import quotient_kernel as qk  # it imports this module
+
+    return qk.quotient_chain(operands, table, qk.PLAIN)
+
+
+def quotient(operands, table: torch.Tensor) -> torch.Tensor:
+    """The quotient over (a slice of) the 8n coset: the numerator of the
+    gate and permutation identities times Z_H^-1, lane by lane, into a
+    contiguous [8, L] int32 Montgomery tensor.  `operands` are the 28 [8, L]
+    int32 tensors named by QUOTIENT_OPERANDS, each with contiguous lanes
+    (any limb stride: a shard's slice of a global tensor is read in place);
+    `table` is the [31, 8] challenge table (`quotient_kernel.
+    challenge_table`).  One launch.
+
+    Contract: every element of every operand and of the table is canonical
+    (below r), as on every path (the coset FFT's outputs, their rolls, the
+    key's tables): the kernel computes the canonical value of the same
+    field expression as the chain, whose words are then the same."""
+    if len(operands) != len(QUOTIENT_OPERANDS):
+        raise ValueError(f"quotient: {len(operands)} operands, not "
+                         f"{len(QUOTIENT_OPERANDS)}")
+    dev = operands[0].device
+    lanes = operands[0].shape[-1]
+    for name, t in zip(QUOTIENT_OPERANDS, operands):
+        if t.dtype != torch.int32:
+            raise TypeError(f"quotient: {name} is {t.dtype}, not int32")
+        if tuple(t.shape) != (FR.n_limbs, lanes):
+            raise ValueError(f"quotient: {name} is {tuple(t.shape)}, not "
+                             f"[{FR.n_limbs}, {lanes}]")
+        if t.device != dev:
+            raise ValueError(f"quotient: {name} on {t.device}, not {dev}")
+        if lanes > 1 and t.stride(-1) != 1:
+            raise ValueError(f"quotient: the lanes of {name} are not "
+                             f"contiguous (strides {t.stride()})")
+    if (table.dtype != torch.int32 or table.device != dev
+            or tuple(table.shape) != (len(QUOTIENT_TABLE), FR.n_limbs)
+            or not table.is_contiguous()):
+        raise ValueError(f"quotient: the table is {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}, not a "
+                         f"contiguous int32 [{len(QUOTIENT_TABLE)}, "
+                         f"{FR.n_limbs}] on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"quotient: unsupported device {dev}")
+    if dev.type == "cpu":
+        return quotient_plain(operands, table)
+    out = torch.empty((FR.n_limbs, lanes), dtype=torch.int32, device=dev)
+    if lanes == 0:
+        return out
+    build()
+    count = len(QUOTIENT_OPERANDS)
+    ptrs = (ctypes.c_void_p * count)(*(t.data_ptr() for t in operands))
+    strides = (ctypes.c_longlong * count)(*(t.stride(-2) for t in operands))
+    with torch.cuda.device(dev):
+        _launch("quotient", _lib.zk_quotient, ptrs, strides,
+                table.data_ptr(), out.data_ptr(), lanes, _stream(dev))
     return out

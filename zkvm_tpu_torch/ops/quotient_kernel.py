@@ -6,24 +6,53 @@ compute_quotient_i formulas (proof_system/widget/*/proverkey.rs), evaluated
 over the whole 8n coset domain on [8, 8n] limb tensors.  Challenges enter as
 [8, 1] Montgomery columns.
 
-Counterpart of `zkvm_tpu/ops/quotient_kernel.py`, the same formulas in the
-same order.  There `jit` fuses the whole numerator into one program; here it
-is plain calls of `lf.mont_mul` and of `lf.add` / `lf.sub` (the mont_mul and
-field_addsub kernels on the card), each of which reads an [8, 1] column or
-a broadcast operand in place: nothing of the full width is made for one.
+Counterpart of `zkvm_tpu/ops/quotient_kernel.py`.  There `jit` fuses the
+numerator into one program and the division into another; here the path
+takes one launch of the `quotient` kernel for both (`quotient_pointwise`,
+`csrc/quotient.cu`).  `quotient_numerator` and `pointwise_divide` keep the
+reference's formulas in its order, on an arithmetic that is handed over:
+the plain product, addition and subtraction (`PLAIN`: the kernel's plain
+version, `kernels.quotient_plain`), or `lf.mont_mul` and `lf.add` /
+`lf.sub` (`LAUNCHED`, the default: one `mont_mul` or `field_addsub` launch
+each on the card, the chain the kernel replaced, which `chip_smoke.py`
+runs beside it), each reading an [8, 1] column or a broadcast operand in
+place: nothing of the full width is made for one.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
 from .. import params
+from . import kernels
 from . import limb_field as lf
 from .limb_field import FR
 
 _Q = params.FR_MODULUS
+CHALLENGES = kernels.QUOTIENT_TABLE[:7]
+
+
+class Arithmetic(NamedTuple):
+    """The product, addition and subtraction the formulas run on."""
+
+    mul: Callable
+    add: Callable
+    sub: Callable
+
+    def mulc(self, x, v: int):
+        """x times the small host constant v, an [8, 1] column."""
+        return self.mul(x, _const(v, x))
+
+
+LAUNCHED = Arithmetic(lambda a, b: lf.mont_mul(FR, a, b),
+                      lambda a, b: lf.add(FR, a, b),
+                      lambda a, b: lf.sub(FR, a, b))
+PLAIN = Arithmetic(lambda a, b: kernels.mont_mul_plain(FR, a, b),
+                   lambda a, b: kernels.field_addsub_plain(FR, "add", a, b),
+                   lambda a, b: kernels.field_addsub_plain(FR, "sub", a, b))
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,31 +65,17 @@ def _const(v: int, like: torch.Tensor) -> torch.Tensor:
     return _column(v, like.device)
 
 
-def _mulc(a, v: int):
-    return lf.mont_mul(FR, a, _const(v, a))
-
-
-def _mul(a, b):
-    return lf.mont_mul(FR, a, b)
-
-
-def _add(a, b):
-    return lf.add(FR, a, b)
-
-
-def _sub(a, b):
-    return lf.sub(FR, a, b)
-
-
-def _delta(f):
+def delta(f, ar: Arithmetic):
     """f(f-1)(f-2)(f-3) (range/logic widget delta)."""
-    t = _mul(f, _sub(f, _const(1, f)))
-    t = _mul(t, _sub(f, _const(2, f)))
-    return _mul(t, _sub(f, _const(3, f)))
+    t = ar.mul(f, ar.sub(f, _const(1, f)))
+    t = ar.mul(t, ar.sub(f, _const(2, f)))
+    return ar.mul(t, ar.sub(f, _const(3, f)))
 
 
-def _delta_xor_and(a, b, w, c, q_c):
+def delta_xor_and(a, b, w, c, q_c, ar: Arithmetic):
     """Choice polynomial (logic/proverkey.rs delta_xor_and)."""
+    _mul, _add, _sub = ar
+    _mulc = ar.mulc
     sum_ab = _add(a, b)
     inner = _add(_sub(_mulc(w, 4), _mulc(sum_ab, 18)), _const(81, w))
     sq = _add(_mul(a, a), _mul(b, b))
@@ -72,15 +87,20 @@ def _delta_xor_and(a, b, w, c, q_c):
     return _add(bb, e)
 
 
-def quotient_numerator(sel, wires, z, z_w, pi, l1_alpha_sq, linear, chals):
+def quotient_numerator(sel, wires, z, z_w, pi, l1_alpha_sq, linear, chals,
+                       ar: Arithmetic = LAUNCHED):
     """Numerator of the quotient over the 8n coset.
 
     sel: dict of selector/sigma eval tensors [L, 8n]
     wires: (a, b, c, d, a_w, b_w, d_w); z/z_w: grand product (+shift)
     pi: public-input evals; l1_alpha_sq: L1*alpha^2 evals
     linear: X evals over the coset; chals: dict of challenge columns [8, 1]
-    (read in place by every kernel, never expanded)
+    (read in place by every kernel, never expanded); ar: the arithmetic
     """
+    _mul, _add, _sub = ar
+    _mulc = ar.mulc
+    _delta = functools.partial(delta, ar=ar)
+    _delta_xor_and = functools.partial(delta_xor_and, ar=ar)
     a, b, c, d, a_w, b_w, d_w = wires
     alpha, beta, gamma = chals["alpha"], chals["beta"], chals["gamma"]
 
@@ -187,6 +207,62 @@ def quotient_numerator(sel, wires, z, z_w, pi, l1_alpha_sq, linear, chals):
     return total
 
 
-def pointwise_divide(numerator, v_h_inv):
+def pointwise_divide(numerator, v_h_inv, ar: Arithmetic = LAUNCHED):
     """quotient = numerator * Z_H^-1 pointwise (quotient_poly.rs:86-95)."""
-    return lf.mont_mul(FR, numerator, v_h_inv)
+    return ar.mul(numerator, v_h_inv)
+
+
+def quotient_chain(operands, table, ar: Arithmetic = LAUNCHED):
+    """`quotient_numerator` then `pointwise_divide` on the quotient kernel's
+    operands (the 28 tensors named by `kernels.QUOTIENT_OPERANDS`) and
+    table, whose first seven rows are read as [8, 1] challenge columns:
+    with PLAIN the kernel's plain version, with LAUNCHED the chain of
+    launches the kernel replaced."""
+    ops = dict(zip(kernels.QUOTIENT_OPERANDS, operands))
+    chals = {name: table[i].unsqueeze(-1) for i, name in enumerate(CHALLENGES)}
+    numerator = quotient_numerator(
+        {name: ops[name] for name in kernels.QUOTIENT_OPERANDS[:15]},
+        tuple(ops[w] for w in ("a", "b", "c", "d", "a_w", "b_w", "d_w")),
+        ops["z"], ops["z_w"], ops["pi"], ops["l1_alpha_sq"], ops["linear"],
+        chals, ar)
+    return pointwise_divide(numerator, ops["v_h_inv"], ar)
+
+
+def challenge_values(chals) -> list[int]:
+    """The entries of the quotient kernel's table (`kernels.QUOTIENT_TABLE`)
+    as canonical field values, from the seven challenges' canonical values
+    (`chals`, by name): the challenges, each separator s times kappa^i
+    (kappa = s^2; i < 4, 5 for logic, 3 for the variable base), -alpha,
+    and 1, 2, 18, 81, -81, 83 and the Jubjub d."""
+    q = _Q
+    alpha, beta, gamma, rs, ls, fs, vs = (chals[n] % q for n in CHALLENGES)
+
+    def powers(s: int, count: int) -> list[int]:
+        kappa = s * s % q
+        return [s * pow(kappa, i, q) % q for i in range(count)]
+
+    return [alpha, beta, gamma, rs, ls, fs, vs, *powers(rs, 4),
+            *powers(ls, 5), *powers(fs, 4), *powers(vs, 3), -alpha % q, 1,
+            2, 18, 81, -81 % q, 83, params.JUBJUB_D]
+
+
+def challenge_table(chals, device) -> torch.Tensor:
+    """The quotient kernel's [31, 8] int32 table of `challenge_values`, in
+    Montgomery form, on `device`: built on the host, one copy."""
+    return lf.u32_to_tensor(
+        FR.to_mont_array_np(challenge_values(chals)).T, device)
+
+
+def quotient_pointwise(sel, wires, z, z_w, pi, l1_alpha_sq, linear, v_h_inv,
+                       chals):
+    """The quotient over (a slice of) the 8n coset, numerator times Z_H^-1,
+    by ONE launch of the `quotient` kernel on the card (its plain version,
+    the chain above on the plain arithmetic, on the CPU).  The operands are
+    those of `quotient_numerator` and `pointwise_divide` ([8, L] tensors
+    with contiguous lanes: a shard's slice is read in place); `chals` are
+    the seven challenges' canonical values by name (CHALLENGES)."""
+    ops = {**sel, "z": z, "z_w": z_w, "pi": pi,
+           "l1_alpha_sq": l1_alpha_sq, "linear": linear, "v_h_inv": v_h_inv}
+    ops.update(zip(("a", "b", "c", "d", "a_w", "b_w", "d_w"), wires))
+    return kernels.quotient([ops[name] for name in kernels.QUOTIENT_OPERANDS],
+                            challenge_table(chals, z.device))

@@ -3,8 +3,9 @@
 The hot loop -- pointwise gate + permutation terms over the 8n coset domain,
 divided by the vanishing polynomial -- runs fully on the device
 (`zkvm_tpu_torch/ops/quotient_kernel.py`) over [8, 8n] limb tensors: one
-batched coset FFT in, the numerator, a pointwise multiply by the
-precomputed Z_H^-1, a coset iFFT out.  Selector/sigma coset evaluations are
+batched coset FFT in, the numerator and the pointwise multiply by the
+precomputed Z_H^-1 in one launch of the quotient kernel
+(`csrc/quotient.cu`), a coset iFFT out.  Selector/sigma coset evaluations are
 cached on the ProverKey, per device, after the first proof.
 
 Counterpart of `zkvm_tpu/plonk/quotient.py`.  Every transform is a `Domain`
@@ -123,32 +124,27 @@ def build_quotient_device(domain: Domain, prover_key: ProverKey,
     a8w, b8w, d8w, z8w = (torch.roll(t, -8, dims=-1)
                           for t in (a8, b8, d8, z8))
 
-    names = ("alpha", "beta", "gamma", "range_sep", "logic_sep", "fixed_sep",
-             "var_sep")
-    chals = {name: dpoly.const_col(c.value, dev)
-             for name, c in zip(names, challenges)}
+    chals = {name: c.value for name, c in zip(qk.CHALLENGES, challenges)}
     evals = (a8, b8, c8, d8, a8w, b8w, d8w, z8, z8w, pi8, l1_8n)
     if mesh is None:
         sel, v_h_inv, linear = _device_cache(prover_key, dev)
         quotient = _pointwise(sel, evals, linear, v_h_inv, chals)
     else:
-        shards = zip(_mesh_cache(prover_key, mesh), mesh.devices,
+        shards = zip(_mesh_cache(prover_key, mesh),
                      *(mesh.split(t) for t in evals))
         quotient = mesh.gather([
-            _pointwise(sel, ev, lin, vh,
-                       {k: c.to(d, non_blocking=True)
-                        for k, c in chals.items()})
-            for (sel, vh, lin), d, *ev in shards])
+            _pointwise(sel, ev, lin, vh, chals)
+            for (sel, vh, lin), *ev in shards])
     return dom_8n.coset_ifft_device(quotient)  # [8, 8n] coefficients
 
 
 def _pointwise(sel, evals, linear, v_h_inv, chals):
-    """Numerator over (a slice of) the 8n coset, divided by Z_H."""
+    """Numerator over (a slice of) the 8n coset, divided by Z_H: one
+    launch of the quotient kernel on the card."""
     a8, b8, c8, d8, a8w, b8w, d8w, z8, z8w, pi8, l1_8n = evals
-    numerator = qk.quotient_numerator(
+    return qk.quotient_pointwise(
         sel, (a8, b8, c8, d8, a8w, b8w, d8w), z8, z8w, pi8, l1_8n, linear,
-        chals)
-    return qk.pointwise_divide(numerator, v_h_inv)
+        v_h_inv, chals)
 
 
 def build_quotient_polynomial(domain: Domain, prover_key: ProverKey,

@@ -1,0 +1,78 @@
+"""Time a few kernels of the checkout this runs in, for a comparison of two
+checkouts in turns in one call on the card.
+
+    python3 /path/to/zkvm_tpu_torch/tools/kernel_times.py LABEL
+
+Run from the root of a checkout (this one, or a parent commit unpacked with
+`git archive` into a git-ignored directory): it imports that checkout's
+`zkvm_tpu_torch`, builds its kernels and prints one JSON line of CUDA-event
+times (ms, three runs each) of `ntt_stages` at [4, 8, 2^19], `fold` at [17,
+2^16] and [17, 2^21] and `carry_fold` at [68, 2^21], on seeded canonical
+operands, beside the card's name and power limit.  Running it as parent,
+this one, this one, parent compares the two on one card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from zkvm_tpu_torch.ops import kernels, ntt  # noqa: E402
+from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches enqueued while the card
+    spins."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs an NVIDIA GPU")
+    kernels.build()
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 1 << 32, size=(4, 8, 1 << 19),
+                     dtype=np.uint64).astype(np.uint32)
+    a[:, -1] = rng.integers(0, int(lf.FR.p_limbs[-1]), size=(4, 1 << 19))
+    x = lf.u32_to_tensor(a, "cuda")
+    tw = ntt.Domain(1 << 19)._butterfly_tables(torch.device("cuda"))[0]
+    out = {"checkout": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"],
+               capture_output=True, text=True).stdout.strip()}
+    out["ntt_stages_4x2^19"] = [
+        cuda_ms(lambda: kernels.ntt_stages(x, tw), 20) for _ in range(3)]
+    for lanes in (1 << 16, 1 << 21):
+        w = lf.u32_to_tensor(rng.integers(0, 1 << 32, size=(17, lanes),
+                                          dtype=np.uint64).astype(np.uint32),
+                             "cuda")
+        out[f"fold_{lanes}"] = [cuda_ms(lambda: kernels.fold(w), 50)
+                                for _ in range(3)]
+    d = np.zeros((68, 1 << 21), dtype=np.int32)
+    d[:63] = rng.integers(0, 1 << 24, size=(63, 1 << 21))
+    d = torch.from_numpy(d).to("cuda")
+    out["carry_fold_2^21"] = [cuda_ms(lambda: kernels.carry_fold(d), 20)
+                              for _ in range(3)]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
