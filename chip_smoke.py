@@ -41,7 +41,9 @@ Phases (any failure exits non-zero; no phase catches its own error):
      contract excludes: whether it equals its plain version is printed;
      carry_fold at [68, 2^16] and [68, 2^21], fold at [17, 2^16] and [17,
      2^21]; quotient (the numerator of the quotient round times Z_H^-1, one
-     launch) at 2^8, 2^18 (the service's 8n) and 2^19 (the flagship's),
+     launch, two threads a lane; its registers and spills as ptxas gives
+     them) at 2^8, 2^18 (the service's 8n) and 2^19 (the flagship's), at
+     lane counts that leave a block's last pairs empty (2^18 + 37, 1, 3),
      and on a mesh shard's quarter of the 2^19 operands read in place, with
      the edge values in the first lanes, against its plain version on the
      card, and at 2^19 against the chain of mont_mul and field_addsub
@@ -1123,6 +1125,8 @@ def non_canonical_inputs(rng, dev) -> None:
 # the quotient kernel's lane counts: a small one, the service's 8n and the
 # flagship's (the last also split over the mesh phase's MESH_SHARDS)
 QUOTIENT_LANES = (1 << 8, 1 << 18, 1 << 19)
+# lane counts that leave the last block's pairs partly or wholly empty
+QUOTIENT_RAGGED = ((1 << 18) + 37, 1, 3)
 
 
 def quotient_operands(rng, lanes: int, dev):
@@ -1138,17 +1142,42 @@ def quotient_operands(rng, lanes: int, dev):
     return ops, qk.challenge_table(chals, dev)
 
 
+def ptxas_usage(name: str) -> str:
+    """What `ptxas -v` said in the kernels' build of each function whose
+    mangled name holds `name`: its spills and, for a kernel, registers."""
+    lines, out = kernels.BUILD_LOG.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and name in line:
+            out += [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3]
+                    if "spill" in x or "Used" in x]
+    return "; ".join(dict.fromkeys(out))
+
+
 def phase_parity_quotient(rng, dev, rec) -> None:
     """quotient against its plain version on the same card tensors, bit for
-    bit, at QUOTIENT_LANES (at 2^8 also against the plain version on a CPU
-    copy), and on each of the MESH_SHARDS parts of the 2^19 operands, read
-    in place (limb rows 2^19 apart); at 2^19 also against the chain of
-    mont_mul and field_addsub launches it replaced, and timed in turns with
-    it: kernel, chain, chain, kernel.  The bound counts the kernel's own
-    multiply-adds (`kernels.quotient_multiply_adds`) and its bytes: 28
+    bit, at QUOTIENT_RAGGED and QUOTIENT_LANES (at the small counts also
+    against the plain version on a CPU copy), and on each of the MESH_SHARDS
+    parts of the 2^19 operands, read in place (limb rows 2^19 apart); at
+    2^19 also against the chain of mont_mul and field_addsub launches it
+    replaced, and timed in turns with it: kernel, chain, chain, kernel.
+    It prints what ptxas said of the kernel.  The bound counts the kernel's
+    own multiply-adds (`kernels.quotient_multiply_adds`) and its bytes: 28
     inputs read, one output written, the table."""
     err, card = 0, card_line()
     per_lane = kernels.quotient_multiply_adds()
+    usage = (f"quotient_kernel: {ptxas_usage('quotient_kernel')}; its "
+             f"product: {ptxas_usage('7product')}" if kernels.BUILD_LOG
+             else "not in this process (the library was built by another)")
+    log(f"quotient, ptxas -v: {usage}")
+    for lanes in QUOTIENT_RAGGED:
+        ops, table = quotient_operands(rng, lanes, dev)
+        got = kernels.quotient(ops, table)
+        err = max(err, max_abs_err(got, kernels.quotient_plain(ops, table)))
+        if lanes < 1 << 10:
+            err = max(err, max_abs_err(got, kernels.quotient_plain(
+                [t.cpu() for t in ops], table.cpu())))
+    log(f"quotient at the ragged lane counts {QUOTIENT_RAGGED}: max abs err "
+        f"{err}")
     for lanes in QUOTIENT_LANES:
         ops, table = quotient_operands(rng, lanes, dev)
         before = kernels.LAUNCHES["quotient"]
@@ -1198,7 +1227,7 @@ def phase_parity_quotient(rng, dev, rec) -> None:
             + f" ms against a bound of {bs['bound_ms']:.4f} ms by "
             f"{bs['bound_by']}")
         rec["quotient"] = dict(
-            ms=(turns[0] + turns[3]) / 2, plain_ms=plain_ms,
+            ptxas=usage, ms=(turns[0] + turns[3]) / 2, plain_ms=plain_ms,
             chain_ms=(turns[1] + turns[2]) / 2,
             chain_device_ms=chain_device_ms,
             shard_ms=sum(shard_ms) / len(shard_ms),

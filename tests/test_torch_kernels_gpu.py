@@ -357,7 +357,7 @@ def _quotient_operands(lanes, seed):
            for _ in kernels.QUOTIENT_OPERANDS]
     edge = _fr_tensor([0, lf.FR.R, lf.FR.modulus - 1])  # 0, 1, r - 1
     for t in ops:
-        t[:, :3] = edge
+        t[:, :3] = edge[:, :lanes]
     chals = {n: int.from_bytes(rng.bytes(40), "little") % lf.FR.modulus
              for n in qk.CHALLENGES}
     return ops, qk.challenge_table(chals, "cpu")
@@ -374,6 +374,21 @@ def test_quotient_kernel_matches_plain(cuda, log_lanes):
     assert kernels.LAUNCHES["quotient"] == before + 1
     assert torch.equal(got, kernels.quotient_plain(ops, table.to(cuda)))
     if log_lanes == 8:
+        cpu = kernels.quotient_plain([t.cpu() for t in ops], table)
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, (1 << 10) + 37, (1 << 17) + 37])
+def test_quotient_kernel_ragged_lanes(cuda, lanes):
+    """Lane counts that leave the last block part empty, odd counts and a
+    single lane: a thread pair past the last lane stores nothing, and every
+    lane before it equals the plain version's."""
+    ops, table = _quotient_operands(lanes, 60 + lanes % 97)
+    ops = [t.to(cuda) for t in ops]
+    got = kernels.quotient(ops, table.to(cuda))
+    assert got.shape == (8, lanes) and got.is_contiguous()
+    assert torch.equal(got, kernels.quotient_plain(ops, table.to(cuda)))
+    if lanes < 1 << 17:
         cpu = kernels.quotient_plain([t.cpu() for t in ops], table)
         assert torch.equal(got.cpu(), cpu)
 

@@ -1,12 +1,16 @@
 """What the `quotient` kernel (`zkvm_tpu_torch/csrc/quotient.cu`) computes,
 checked on the CPU.
 
-The CUDA source cannot run here.  Its program of a lane is written in a few
-statements (`kernels.QUOTIENT_STATEMENTS`: load an operand, read a table
-entry, store, product, sum, difference, negation, dot products of two to
-five pairs) and two functions made of them, so the model does not copy it:
-it reads the program out of the source (`kernels.quotient_program`) and
-executes it statement by statement, on the carry chains of
+The CUDA source cannot run here.  A lane runs on two threads: each computes
+half of the widgets into its own sum, and the second adds the first's
+(`meet`), the public inputs, and multiplies by Z_H^-1.  The programs of
+the two halves and of the combine are written in a few statements
+(`kernels.QUOTIENT_STATEMENTS`: load an operand, read a table entry, store,
+take the other half's sum, product, sum, difference, negation, dot
+products of two to five pairs) and two functions made of them, so the
+model does not copy them: it reads them out of the source
+(`kernels.quotient_program`) and executes them statement by statement, each
+half in its own frame, on the carry chains of
 `csrc/fr_lazy.cuh` (`tests/ptx_model.py`, through
 `test_torch_hades_design.py`'s transcription of `mul`, `dot`, `reduce_r`,
 `reduce_dot` and `add_r` and `test_torch_ntt_design.py`'s of `sub_r`) or on
@@ -14,7 +18,8 @@ the same values in integers (the exact Montgomery quotient that `mul` and
 `dot` return, which those files hold against the chains).  Every value is
 asserted canonical and every product and dot product inside its stated
 range.  The C++ of each statement is pinned by
-`test_kernel_source_is_what_the_model_transcribes`; the launch (threads,
+`test_kernel_source_is_what_the_model_transcribes`, with which operands
+each half reads and how the halves meet; the launch (threads, the pairing,
 the operands' strides) is not modelled.
 
 The model, `quotient_kernel.quotient_pointwise` on the CPU (the kernel's
@@ -77,9 +82,15 @@ def test_enums_are_the_wrappers_orders():
 
 def test_kernel_source_is_what_the_model_transcribes():
     """The C++ of each statement, which the model executes by name."""
-    body = function_body(SOURCE, "fmul")
+    body = re.search(r"__device__ __noinline__ Word8 product\(Word8 a, "
+                     r"Word8 b\) \{(.*?)\n\}", SOURCE, re.S).group(1)
     assert re.findall(r"zk::frl::(\w+)\(([^;]*)\);", body) == [
-        ("mul", "r, a, b"), ("reduce_r", "r")]
+        ("mul", "r.w, a.w, b.w"), ("reduce_r", "r.w")]
+    assert body.rstrip().endswith("return r;")
+    body = " ".join(function_body(SOURCE, "fmul").split())
+    assert ("for (int i = 0; i < N; ++i) { x.w[i] = a[i]; y.w[i] = b[i]; } "
+            "const Word8 t = product(x, y); #pragma unroll for (int i = 0; i "
+            "< N; ++i) r[i] = t.w[i];") in body
     for name, step in (("fadd", "add_r"), ("fsub", "sub_r")):
         body = function_body(SOURCE, name)
         assert "for (int i = 0; i < N; ++i) t[i] = a[i];" in body
@@ -102,33 +113,118 @@ def test_kernel_source_is_what_the_model_transcribes():
         assert f"const uint32_t* y[{k}] = {{{ys}}};" in body
         assert calls(body, f"fdot<{k}>") == ["r, x, y"]
     kernel = " ".join(SOURCE[SOURCE.index("quotient_kernel("):
-                             SOURCE.index("// ---- the program")].split())
+                             SOURCE.index("// ---- the first half")].split())
     for line in (
-            "const long long lane = (long long)blockIdx.x * blockDim.x + "
-            "threadIdx.x;",
-            "x[l] = __ldg(in.p[k] + l * in.limb_stride[k] + lane);",
-            "for (int l = 0; l < N; ++l) x[l] = __ldg(table + k * N + l);",
-            "for (int l = 0; l < N; ++l) out[l * lanes + lane] = x[l];"):
+            "const int half = (threadIdx.x >> kPairBit) & 1;",
+            "const int slot = ((threadIdx.x >> (kPairBit + 1)) << kPairBit) "
+            "| (threadIdx.x & ((1 << kPairBit) - 1));",
+            "const long long pair = (long long)blockIdx.x * kPairs + slot;",
+            "const long long lane = pair < lanes ? pair : lanes - 1;",
+            # the staged operands, copied by the pair before the barrier
+            "for (int j = half; j < kStages; j += 2) { const int k = "
+            "staged(j); #pragma unroll for (int l = 0; l < N; ++l) "
+            "stage[j][l][slot] = __ldg(in.p[k] + l * in.limb_stride[k] + "
+            "lane); } __syncthreads();",
+            "const int j = stage_of(k); #pragma unroll for (int l = 0; l < "
+            "N; ++l) x[l] = j >= 0 ? stage[j][l][slot] : __ldg(in.p[k] + l "
+            "* in.limb_stride[k] + lane);",
+            "for (int l = 0; l < N; ++l) x[l] = c_table[k * N + l];",
+            "if (pair < lanes) { #pragma unroll for (int l = 0; l < N; ++l) "
+            "out[l * lanes + pair] = x.p[l]; }",
+            "for (int l = 0; l < N; ++l) x[l] = park[0][slot][l];",
+            # a statement copies its operands in and its result out
+            "for (int l = 0; l < N; ++l) s[l] = from[l];",
+            "for (int l = 0; l < N; ++l) to[l] = s[l];",
+            "const Park total{park[half][slot]}; if (half == 0) {"):
         assert line in kernel, line
-    # the program and its two functions are made of the statements only
-    main, functions = kernels.quotient_program()
+    # every statement of the program is a call of stmt's function of its
+    # name on copies of its operands, and its result put back
+    for name, params in (("fmul", "a, b"), ("fadd", "a, b"),
+                         ("fsub", "a, b"), ("fneg", "a"),
+                         ("minus4", "hi, lo"), ("delta", "f, two"),
+                         ("fdot2", "x0, y0, x1, y1"),
+                         ("fdot3", "x0, y0, x1, y1, x2, y2"),
+                         ("fdot4", "x0, y0, x1, y1, x2, y2, x3, y3"),
+                         ("fdot5", "x0, y0, x1, y1, x2, y2, x3, y3, x4, y4")):
+        args = params.split(", ")
+        found = re.search(r"auto %s = \[&\]\((.*?)\) \{(.*?)\n  \};" % name,
+                          SOURCE, re.S)
+        assert found, name
+        assert " ".join(found.group(1).split()) == "auto r, " + ", ".join(
+            f"auto {a}" for a in args), name
+        body = found.group(2)
+        gets = re.findall(r"get\((\w+), (\w+)\);", body)
+        assert [g[1] for g in gets] == args, name
+        assert calls(body, f"stmt::{name}") == [
+            "t, " + ", ".join(g[0] for g in gets)], name
+        assert body.rstrip().endswith("put(r, t);"), name
+    # the parked values: slot 0 and 1 the two halves' sums, which the
+    # combine meets at slot 0; each other slot named once, in one half
+    parked = re.findall(r"const Park (\w+)\{park\[(\w+)\]\[slot\]\};",
+                        SOURCE)
+    assert parked == [("total", "half"), ("cd", "2"), ("x1", "3"),
+                      ("x2", "4"), ("x1", "5")]
+    assert re.search(r"constexpr int kParked = 6;", SOURCE)
+    # the staged operands are those a lane reads more than once
+    switch = SOURCE[SOURCE.index("constexpr int staged(int j)"):
+                    SOURCE.index("constexpr int stage_of(int k)")]
+    staged = re.findall(r"return k_(\w+);", switch)
+    assert len(staged) == int(re.search(r"constexpr int kStages = (\d+);",
+                                        SOURCE).group(1))
+    # the first half's sum reaches the second through the block's barrier
+    between = " ".join(SOURCE[SOURCE.index("// ---- end of the first half"):
+                              SOURCE.index("// ---- the combine")].split())
+    assert between.index("} else {") < between.index("// ---- the second")
+    assert re.search(r"// ---- end of the second half of a lane ---- \} "
+                     r"__syncthreads\(\); if \(half == 1\) \{", between)
+    assert re.search(r"kPairs = kThreads / 2;", SOURCE)
+    assert "zk::blocks_for(lanes, kPairs)" in SOURCE
+    assert "cudaMemcpyToSymbolAsync(" in SOURCE
+    # the programs and their two functions are made of the statements only
+    parts, functions = kernels.quotient_program()
+    assert list(parts) == ["first", "second", "combine"]
     assert sorted(functions) == ["delta", "minus4"]
-    for stmts in [main] + [f[1] for f in functions.values()]:
+    for stmts in list(parts.values()) + [f[1] for f in functions.values()]:
         for op, _ in stmts:
             assert op in kernels.QUOTIENT_STATEMENTS or op in functions, op
-    # every operand read once, the output stored once, last
-    loads = [args[1] for op, args in main if op == "ld"]
-    assert sorted(loads) == sorted(f"k_{n}" for n in
-                                   kernels.QUOTIENT_OPERANDS)
-    assert [op for op, _ in main].count("st") == 1 and main[-1][0] == "st"
-    assert all(op != "ld" for f in functions.values() for op, _ in f[1])
+    # which operands each part reads: the seven wires in both halves, q_c,
+    # q_l and q_r in the first (each again in a later widget: these are the
+    # staged ones), every other selector, sigma and column once in the whole
+    # lane, the public inputs and Z_H^-1 in the combine; the combine meets
+    # the first half's sum first and stores the lane once, last
+    loads = {name: {args[1][2:] for op, args in stmts if op == "ld"}
+             for name, stmts in parts.items()}
+    wires = set(WIRES)
+    assert loads["first"] == wires | {"q_m", "q_l", "q_r", "q_o", "q_f",
+                                      "q_c", "q_arith", "q_fixed_group_add",
+                                      "q_logic"}
+    assert loads["second"] == wires | {
+        "q_variable_group_add", "q_range", "s_sigma_1", "s_sigma_2",
+        "s_sigma_3", "s_sigma_4", "z", "z_w", "l1_alpha_sq", "linear"}
+    assert loads["combine"] == {"pi", "v_h_inv"}
+    assert set().union(*loads.values()) == set(kernels.QUOTIENT_OPERANDS)
+    every = [args[1][2:] for stmts in parts.values() for op, args in stmts
+             if op == "ld"]
+    again = {n for n in every if every.count(n) > 1}
+    assert again == wires | {"q_c", "q_l", "q_r"} == set(staged)
+    assert [op for op, _ in parts["combine"]] == [
+        "meet", "fadd", "ld", "fadd", "ld", "fmul", "st"]
+    assert parts["combine"][0][1] == ["t"] and parts["combine"][-1][1] == [
+        "total"]
+    for name in ("first", "second"):
+        ops = [op for op, _ in parts[name]]
+        assert "st" not in ops and "meet" not in ops
+        assert "total" in {args[0] for _, args in parts[name]}
+    assert all(op not in ("ld", "st", "meet")
+               for f in functions.values() for op, _ in f[1])
 
 
 def test_its_multiply_adds_and_the_chains():
-    """49 products and 11 dot products a lane where the chain (the kernel's
-    plain version) takes 113 products of full width and 12 of [8, 1]
-    challenge columns."""
-    main, functions = kernels.quotient_program()
+    """49 products and 11 dot products a lane, 9,648 multiply-adds in the
+    first half, 9,856 in the second and 272 in its combine, where the chain
+    (the kernel's plain version) takes 113 products of full width and 12 of
+    [8, 1] challenge columns."""
+    parts, functions = kernels.quotient_program()
 
     def ops(stmts):
         out = []
@@ -136,11 +232,13 @@ def test_its_multiply_adds_and_the_chains():
             out += ops(functions[op][1]) if op in functions else [op]
         return out
 
-    flat = ops(main)
+    flat = [op for stmts in parts.values() for op in ops(stmts)]
     assert flat.count("fmul") == 49
     assert sorted(op for op in flat if op.startswith("fdot")) == (
         ["fdot2"] + ["fdot3"] * 6 + ["fdot4"] * 2 + ["fdot5"] * 2)
     assert kernels.quotient_multiply_adds() == 19776
+    assert [kernels.quotient_multiply_adds(p) for p in parts] == [
+        9648, 9856, 272]
     assert kernels.dot_multiply_adds(1) == 272
     assert kernels.dot_multiply_adds(5) == 784  # hades.cu's MDS row
     seen = []
@@ -154,6 +252,17 @@ def test_its_multiply_adds_and_the_chains():
                       table, qk.Arithmetic(mul, qk.PLAIN.add, qk.PLAIN.sub))
     assert seen.count(4) == 113 and seen.count(1) == 12
     assert 113 * 272 == 30736
+
+
+def test_the_two_halves_are_balanced():
+    """The two threads of a lane take within 5% of the same multiply-adds,
+    the second with its combine, and each more than two fifths of the
+    lane's."""
+    first = kernels.quotient_multiply_adds("first")
+    second = (kernels.quotient_multiply_adds("second")
+              + kernels.quotient_multiply_adds("combine"))
+    assert abs(first - second) * 20 <= max(first, second)
+    assert min(first, second) * 5 > 2 * kernels.quotient_multiply_adds()
 
 
 # -----------------------------------------------------------------------------
@@ -248,12 +357,14 @@ class Integers:
 
 
 def run_lane(arith, operands: list[int], table: list[int]) -> int:
-    """The program of a lane on one lane's Montgomery operands (in the order
-    of QUOTIENT_OPERANDS) and the table's entries."""
-    main, functions = kernels.quotient_program()
+    """The programs of a lane on one lane's Montgomery operands (in the order
+    of QUOTIENT_OPERANDS) and the table's entries: each half in its own
+    frame (its thread's registers), then the combine in the second's, where
+    `meet` reads the first's `total`."""
+    parts, functions = kernels.quotient_program()
     out = []
 
-    def execute(stmts, frame):
+    def execute(stmts, frame, other=None):
         def get(name):
             return frame[name][0]
 
@@ -269,6 +380,8 @@ def run_lane(arith, operands: list[int], table: list[int]) -> int:
                     kernels.QUOTIENT_TABLE.index(args[1][2:])]))
             elif op == "st":
                 out.append(arith.lower(get(args[0])))
+            elif op == "meet":
+                put(args[0], other["total"][0])
             elif op in ("fmul", "fadd", "fsub"):
                 put(args[0], getattr(arith, op)(get(args[1]), get(args[2])))
             elif op == "fneg":
@@ -284,7 +397,10 @@ def run_lane(arith, operands: list[int], table: list[int]) -> int:
                 execute(body, {p: frame.setdefault(a, [None])
                                for p, a in zip(params, args)})
 
-    execute(main, {})
+    first, second = {}, {}
+    execute(parts["first"], first)
+    execute(parts["second"], second)
+    execute(parts["combine"], second, first)
     assert len(out) == 1
     return out[0]
 

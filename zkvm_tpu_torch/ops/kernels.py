@@ -1000,11 +1000,15 @@ QUOTIENT_TABLE = (
     "fixed_2", "fixed_3", "var_0", "var_1", "var_2", "neg_alpha", "one",
     "two", "eighteen", "eighty_one", "neg_eighty_one", "eighty_three",
     "jubjub_d")
-# the statements the program of a lane is written in
-QUOTIENT_STATEMENTS = ("ld", "tb", "st", "fmul", "fadd", "fsub", "fneg",
-                       "fdot2", "fdot3", "fdot4", "fdot5")
-_PROGRAM = re.compile(r"// ---- the program of a lane ----\n(.*?)"
-                      r"// ---- end of the program of a lane ----", re.S)
+# the statements the programs of a lane are written in
+QUOTIENT_STATEMENTS = ("ld", "tb", "st", "meet", "fmul", "fadd", "fsub",
+                       "fneg", "fdot2", "fdot3", "fdot4", "fdot5")
+# the parts of a lane's program: the two threads' halves (each sums its
+# widgets into its own `total`) and the second thread's combine, whose
+# `meet` reads the first thread's `total`
+QUOTIENT_PARTS = {"first": "the first half of a lane",
+                  "second": "the second half of a lane",
+                  "combine": "the combine"}
 
 
 def _statements(body: str) -> list[tuple[str, list[str]]]:
@@ -1012,7 +1016,7 @@ def _statements(body: str) -> list[tuple[str, list[str]]]:
     out = []
     for stmt in re.sub(r"//[^\n]*", "", body).split(";"):
         stmt = " ".join(stmt.split())
-        if not stmt or stmt.startswith("uint32_t "):
+        if not stmt or stmt.startswith(("uint32_t", "const Park ")):
             continue
         found = re.fullmatch(r"(\w+)\((.*)\)", stmt)
         if found is None:
@@ -1024,13 +1028,19 @@ def _statements(body: str) -> list[tuple[str, list[str]]]:
 
 def quotient_program():
     """The program of a lane of `csrc/quotient.cu`, read out of the source:
-    (its statements, {name: (parameters, statements)} of the functions it
-    calls besides QUOTIENT_STATEMENTS).  For the kernel's bound and the CPU
-    model of the kernel; the wrapper does not need it."""
+    ({part: its statements} for QUOTIENT_PARTS, {name: (parameters,
+    statements)} of the functions they call besides QUOTIENT_STATEMENTS).
+    For the kernel's bound and the CPU model of the kernel; the wrapper does
+    not need it."""
     text = (CSRC / "quotient.cu").read_text()
-    main = _statements(_PROGRAM.search(text).group(1))
+    parts = {}
+    for part, marker in QUOTIENT_PARTS.items():
+        found = re.search(r"// ---- %s ----\n(.*?)// ---- end of %s ----"
+                          % (marker, marker), text, re.S)
+        parts[part] = _statements(found.group(1))
     functions = {}
-    for name in dict.fromkeys(op for op, _ in main):
+    for name in dict.fromkeys(op for stmts in parts.values()
+                              for op, _ in stmts):
         if name in QUOTIENT_STATEMENTS:
             continue
         found = re.search(r"void %s\(([^)]*)\) \{\n(.*?)\n\}" % name, text,
@@ -1038,7 +1048,7 @@ def quotient_program():
         params = [p.split()[-1].lstrip("*")
                   for p in found.group(1).split(",")]
         functions[name] = (params, _statements(found.group(2)))
-    return main, functions
+    return parts, functions
 
 
 def dot_multiply_adds(k: int) -> int:
@@ -1049,11 +1059,12 @@ def dot_multiply_adds(k: int) -> int:
     return 2 * ((k + 1) * n * n + n)
 
 
-def quotient_multiply_adds() -> int:
-    """32-bit multiply-adds of one lane of the quotient kernel: its
-    products (`fmul`) and dot products (`fdot<k>`), as the source has them
-    (additions and subtractions are not counted)."""
-    main, functions = quotient_program()
+def quotient_multiply_adds(part: str | None = None) -> int:
+    """32-bit multiply-adds of one lane of the quotient kernel (of one part
+    of QUOTIENT_PARTS, or of all): its products (`fmul`) and dot products
+    (`fdot<k>`), as the source has them (additions and subtractions are not
+    counted)."""
+    parts, functions = quotient_program()
 
     def count(stmts) -> int:
         total = 0
@@ -1066,7 +1077,8 @@ def quotient_multiply_adds() -> int:
                 total += count(functions[op][1])
         return total
 
-    return count(main)
+    return sum(count(stmts) for name, stmts in parts.items()
+               if part in (None, name))
 
 
 def quotient_plain(operands, table: torch.Tensor) -> torch.Tensor:
@@ -1086,7 +1098,8 @@ def quotient(operands, table: torch.Tensor) -> torch.Tensor:
     int32 tensors named by QUOTIENT_OPERANDS, each with contiguous lanes
     (any limb stride: a shard's slice of a global tensor is read in place);
     `table` is the [31, 8] challenge table (`quotient_kernel.
-    challenge_table`).  One launch.
+    challenge_table`).  One launch, after a copy of the table to the
+    kernel's constant memory on the same stream.
 
     Contract: every element of every operand and of the table is canonical
     (below r), as on every path (the coset FFT's outputs, their rolls, the

@@ -7,8 +7,10 @@ Run from the root of a checkout (this one, or a parent commit unpacked with
 `git archive` into a git-ignored directory): it imports that checkout's
 `zkvm_tpu_torch`, builds its kernels and prints one JSON line of CUDA-event
 times (ms, three runs each) of `ntt_stages` at [4, 8, 2^19], `fold` at [17,
-2^16] and [17, 2^21] and `carry_fold` at [68, 2^21], on seeded canonical
-operands, beside the card's name and power limit.  Running it as parent,
+2^16] and [17, 2^21], `carry_fold` at [68, 2^21] and `quotient` at [8,
+2^19] and [8, 2^18] x 28 operands and on a mesh shard's [8, 2^17] part of
+the 2^19 operands read in place, on seeded canonical operands, beside the
+card's name and power limit.  Running it as parent,
 this one, this one, parent compares the two on one card.
 """
 
@@ -24,6 +26,8 @@ import torch  # noqa: E402
 
 from zkvm_tpu_torch.ops import kernels, ntt  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
+from zkvm_tpu_torch.tools.quotient_bounds import (  # noqa: E402
+    operands as quotient_operands)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -70,6 +74,18 @@ def main() -> int:
     d = torch.from_numpy(d).to("cuda")
     out["carry_fold_2^21"] = [cuda_ms(lambda: kernels.carry_fold(d), 20)
                               for _ in range(3)]
+    del d
+    for log_lanes in (19, 18):
+        ops, table = quotient_operands(1 << log_lanes, rng)
+        out[f"quotient_2^{log_lanes}"] = [
+            cuda_ms(lambda: kernels.quotient(ops, table), 10)
+            for _ in range(3)]
+        if log_lanes == 19:  # the second of four shards, read in place
+            part = [t[:, 1 << 17:2 << 17] for t in ops]
+            out["quotient_shard_2^17"] = [
+                cuda_ms(lambda: kernels.quotient(part, table), 10)
+                for _ in range(3)]
+        del ops
     print(json.dumps(out), flush=True)
     return 0
 

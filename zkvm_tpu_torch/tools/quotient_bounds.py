@@ -1,15 +1,23 @@
-"""Sweep the launch bounds of the quotient kernel on the card.
+"""Sweep the launch bounds and the pairing of the quotient kernel on the
+card.
 
     python3 -m zkvm_tpu_torch.tools.quotient_bounds
 
-`csrc/quotient.cu` fixes its block size and blocks an SM as two constants;
-the block count caps the registers a thread may take (255 at two blocks of
-128 threads, 168 at three, 128 at four), and what does not fit spills.
-This script builds a copy of that source for each candidate pair (the
-constants replaced in the text, nothing else), prints what `ptxas -v` says
-of each, holds each against the plain version bit for bit and times them in
-turns at the flagship's [8, 2^19] x 28 operands.  The pair the source
-carries should be the fastest one printed here.
+`csrc/quotient.cu` runs a lane on two threads and fixes three constants:
+its block size, the blocks an SM, and the bit of the thread index in which
+the two threads of a pair differ (5: warps w and w + 1; 4: threads t and t
++ 16 of a warp; 0: neighbouring threads).  The block count caps the
+registers a thread may take (65,536 over the threads an SM: 128 at four
+blocks of 128 threads, 96 at five, 80 at six), and what does not fit
+spills.  This script builds a copy of that source for each
+candidate (the constants replaced in the text, nothing else), one nvcc
+each, all started together; prints what `ptxas -v` says of each and its
+count of machine instructions (`cuobjdump -sass`); holds
+each against the plain version bit for bit; and times them in turns at the
+flagship's [8, 2^19] x 28 operands.  The candidate the source carries (the
+first) should be the fastest printed here.  At the source's constants it
+also builds the kernel with its product inlined (`stmt::product` not a
+call), the design whose code outgrew the instruction cache.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import ctypes
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,40 +36,66 @@ from ..ops import limb_field as lf
 from ..ops import quotient_kernel as qk
 from ..ops.limb_field import FR
 
-# (threads, blocks an SM)
-BOUNDS = ((128, 2), (128, 3), (128, 4), (128, 5), (256, 2), (128, 6))
+# (threads, blocks an SM, pair bit): the source's first
+CONSTANTS = ("kThreads", "kBlocksPerSm", "kPairBit")
+BOUNDS = ((128, 4, 5), (128, 5, 5), (128, 6, 5), (64, 8, 5), (64, 6, 5),
+          (128, 4, 4), (128, 4, 0))
+CALL = "__device__ __noinline__ Word8 product("
 LANES = 1 << 19
 REPS = 10
 
 
-def build_with(threads: int, blocks: int):
-    """`zk_quotient` of a copy of quotient.cu with these launch bounds."""
+def variant(*values: int) -> str:
+    """The text of quotient.cu with these values of CONSTANTS."""
     src = (kernels.CSRC / "quotient.cu").read_text()
-    src, n1 = re.subn(r"constexpr int kThreads = \d+;",
-                      f"constexpr int kThreads = {threads};", src)
-    src, n2 = re.subn(r"constexpr int kBlocksPerSm = \d+;",
-                      f"constexpr int kBlocksPerSm = {blocks};", src)
-    if (n1, n2) != (1, 1):
-        raise RuntimeError("quotient.cu no longer names its two constants")
+    for name, value in zip(CONSTANTS, values, strict=True):
+        src, n = re.subn(r"constexpr int %s = \d+;" % name,
+                         f"constexpr int {name} = {value};", src)
+        if n != 1:
+            raise RuntimeError(f"quotient.cu no longer names {name}")
+    return src
+
+
+def tag(values) -> str:
+    """A file name for a candidate: its constants, and `inlined` for the
+    variant with its product inlined."""
+    name = "_".join(f"{n}{v}" for n, v in zip(CONSTANTS, values))
+    return name + ("_inlined" if len(values) > len(CONSTANTS) else "")
+
+
+def build_all(sources: dict) -> dict:
+    """{tag: (`zk_quotient` of that source text, what ptxas -v says of it)},
+    one nvcc for each source, all started together."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = kernels.BUILD_DIR / f"quotient_{threads}x{blocks}.cu"
-    cu.write_text(src)
-    so = cu.with_suffix(".so")
-    r = subprocess.run(
-        [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         "-shared", "-I", str(kernels.CSRC), "-o", str(so), str(cu)],
-        capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
-    usage = "; ".join(line.split(":", 1)[-1].strip()
-                      for line in (r.stdout + r.stderr).splitlines()
-                      if "registers" in line or "spill" in line)
-    fn = ctypes.CDLL(str(so)).zk_quotient
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn, usage
+    procs = {}
+    for tag, src in sources.items():
+        cu = kernels.BUILD_DIR / f"quotient_{tag}.cu"
+        cu.write_text(src)
+        so = cu.with_suffix(".so")
+        procs[tag] = (so, subprocess.Popen(
+            [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             "-shared", "-I", str(kernels.CSRC), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for tag, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        usage = "; ".join(line.split(":", 1)[-1].strip()
+                          for line in log.splitlines()
+                          if "registers" in line or "spill" in line)
+        sass = subprocess.run(
+            [str(Path(kernels._nvcc()).parent / "cuobjdump"), "-sass",
+             str(so)], capture_output=True, text=True).stdout
+        usage += (f"; {len(re.findall(r'/[*][0-9a-f]{4,}[*]/ +[A-Z@]', sass))}"
+                  " instructions")
+        fn = ctypes.CDLL(str(so)).zk_quotient
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        built[tag] = (fn, usage)
+    return built
 
 
 def launcher(fn, operands, table):
@@ -121,22 +156,31 @@ def main() -> int:
     rng = np.random.default_rng(12)
     ops, table = operands(LANES, rng)
     want = kernels.quotient_plain(ops, table)
+    sources = {tag(b): variant(*b) for b in BOUNDS}
+    if sources[tag(BOUNDS[0])].count(CALL) != 1:
+        raise RuntimeError("quotient.cu no longer calls its product")
+    inlined = BOUNDS[0] + ("product inlined",)
+    sources[tag(inlined)] = sources[tag(BOUNDS[0])].replace(
+        CALL, "__device__ __forceinline__ Word8 product(")
+    built = build_all(sources)
     runs = {}
-    for bounds in BOUNDS:
-        fn, usage = build_with(*bounds)
+    for bounds in BOUNDS + (inlined,):
+        fn, usage = built[tag(bounds)]
         got = launcher(fn, ops, table)()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"{bounds}: disagrees with the plain version")
         runs[bounds] = (launcher(fn, ops, table), usage)
     ms = {b: device_ms(run) for b, (run, _) in runs.items()}
-    for b in reversed(BOUNDS):  # in turns: forwards, then backwards
+    for b in reversed(runs):  # in turns: forwards, then backwards
         ms[b] = (ms[b] + device_ms(runs[b][0])) / 2
     bound = kernels.quotient_multiply_adds() * LANES / (33.5e12 / 2) * 1e3
-    for b in BOUNDS:
-        print(f"quotient {b[0]} threads x {b[1]} blocks an SM: {ms[b]:.4f} ms "
-              f"at [8, {LANES}] x {len(ops)} ({bound / ms[b]:.3f} of the "
-              f"{bound:.4f} ms bound by operations); {runs[b][1]}")
+    for b in runs:
+        print(f"quotient {b[0]} threads x {b[1]} blocks an SM, pair bit "
+              f"{b[2]}{', ' + b[3] if len(b) > 3 else ''}: {ms[b]:.4f} ms "
+              f"at [8, {LANES}] x {len(ops)} "
+              f"({bound / ms[b]:.3f} of the {bound:.4f} ms bound by "
+              f"operations); {runs[b][1]}")
     return 0
 
 
