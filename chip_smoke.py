@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's PLONK prover (setup -> compile -> prove -> verify), on
 one device and over a mesh, its batch Merkle-membership service, its KZG
-commitment path, the polynomial path of a prover round and the
-Poseidon/Merkle path once on one NVIDIA GPU.
+commitment path, the polynomial path of a prover round, the
+Poseidon/Merkle path, its benchmark entry and its tools once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -151,16 +152,30 @@ Phases (any failure exits non-zero; no phase catches its own error):
  13. the device rows of the benches (utils/benches.py: poseidon, ntt, msm,
      prove) once on the card, each value finite and positive, the poseidon
      row launching hades_permute;
- 14. every kernel's launch count must be above zero in some region.  The
+ 14. entry points and tools: the headline of `python3 -m
+     zkvm_tpu_torch.bench` (its one JSON line, msm_g1_points_per_sec_2^16;
+     its 2^10 sample against the host MSM, its 2^16 MSM against the native
+     host MSM; the `bench` region: mont_mul, padd and window_fold
+     launched), `--only msm` through the entry, the window sweep of
+     tools/bench_msm_cwidth.py (c = 11, 12, 13 at one and four scalar sets,
+     every c one point, window_fold equal to its plain version at each c),
+     tools/bench_msm_r3.py at 2^16, tools/bench_ntt_r3.py (2^16 fft / ifft,
+     2^19 coset pair), tools/bench_padd.py (padd against padd_ilp at 20 x
+     65536 lanes), tools/gen_dryrun_fixture.py --out into a scratch file,
+     byte-equal to tests/fixtures/dryrun_proof_v1.bin, and one headline MSM
+     under utils.metrics.trace_to, whose trace must name padd_kernel and
+     window_fold_kernel;
+ 15. every kernel's launch count must be above zero in some region.  The
      counts are set to 0 just before each region and read just after it;
      the regions are the commitment path, one warm polynomial path, the two
      whole-transform cross-checks (the matmul route and its unfused
      reduction: the only callers of carry_fold and fold), the Merkle path,
      the padd comparison, one warm flagship prove, the mesh (one warm mesh
-     prove and one run of each mesh component) and the first service run
-     (compile and 32 proves), reported apart; ntt_stages must be launched
-     on the polynomial path, the flagship prove, the mesh and the service
-     run, quotient on the flagship prove, the mesh and the service run.
+     prove and one run of each mesh component), the first service run
+     (compile and 32 proves) and the headline (`bench`), reported apart;
+     ntt_stages must be launched on the polynomial path, the flagship
+     prove, the mesh and the service run, quotient on the flagship prove,
+     the mesh and the service run.
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -186,6 +201,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from zkvm_tpu_torch import bench as port_bench  # noqa: E402
 from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective  # noqa: E402
 from zkvm_tpu_torch.fields import Fp, Fr  # noqa: E402
 from zkvm_tpu_torch.hashes import Domain, Hash, hades_permute  # noqa: E402
@@ -207,6 +223,9 @@ from zkvm_tpu_torch.rng import StdRng  # noqa: E402
 from zkvm_tpu_torch.service import cli as service_cli  # noqa: E402
 from zkvm_tpu_torch.service.formats import (LeafInfo,  # noqa: E402
                                             MultipleLeavesData)
+from zkvm_tpu_torch.tools import (bench_msm_cwidth,  # noqa: E402
+                                  bench_msm_r3, bench_ntt_r3,
+                                  bench_padd, gen_dryrun_fixture)
 from zkvm_tpu_torch.utils import benches, dryrun, metrics  # noqa: E402
 from zkvm_tpu_torch.utils.dryrun import forest_root  # noqa: E402
 
@@ -231,6 +250,9 @@ DRYRUN_MESH_SHARDS = (2, 4, 8)
 # SRS of 2^15 (the default capacity, 13, cannot hold it)
 SERVICE_LEAVES, SERVICE_HEIGHT, SERVICE_CAPACITY = 32, 17, 15
 BENCH_ROWS = ("poseidon", "ntt", "msm", "prove")
+# the addition kernels' probe (tools/bench_padd.py): [rows, 12, lanes], the
+# reference tool's default, about a 2^16 MSM's bucket additions of a level
+PADD_PROBE = (20, 65536)
 # 32-bit multiply-adds of one permutation.  The kernel's arithmetic: an S-box
 # is three Fr products of 272, a row of the MDS step ONE Montgomery dot
 # product of five pairs (5 x 64 limb products and 72 of the reduction, a low
@@ -286,7 +308,7 @@ OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
                "field_addsub_kernel", "quotient_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
-           "padd_comparison", "prove_path", "mesh", "service")
+           "padd_comparison", "prove_path", "mesh", "service", "bench")
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, 67 TFLOP/s of float32 outside the tensor cores = 33.5 T
@@ -2718,6 +2740,99 @@ def phase_benches(dev) -> None:
     require_launched(launches, ("hades_permute",), "poseidon bench row")
 
 
+def phase_entry(dev, root: Path) -> dict:
+    """The port's benchmark entry and its tools on the card: the headline
+    of `python3 -m zkvm_tpu_torch.bench` (its JSON line; its 2^16 MSM also
+    against the native host MSM over all 2^16 points; the launches of the
+    `bench` region), `--only msm` through the entry, the window sweep
+    (`tools/bench_msm_cwidth.py`: c = 11, 12, 13 at S = 1 and 4, one point,
+    `window_fold` equal to its plain version at each c), the MSM probe at
+    2^16 (`tools/bench_msm_r3.py`), the transform times
+    (`tools/bench_ntt_r3.py`), `padd` against `padd_ilp` at 20 x 65536
+    lanes (`tools/bench_padd.py`), the dryrun fixture regenerated into a
+    scratch file (`tools/gen_dryrun_fixture.py --out`), byte-equal to the
+    committed one, and the headline MSM under `metrics.trace_to`, whose
+    trace must name the port's `padd` and `window_fold` kernels."""
+    card = card_line()
+    log(f"entry ({card}): python3 -m zkvm_tpu_torch.bench, "
+        f"2^{LOG_N} points")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    # ---- main path: the headline as the entry runs it ----
+    head = port_bench.headline(LOG_N, dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # ---- end of main path ----
+    log(json.dumps(head["row"]))
+    if head["result"] != native_commit(head["points"], head["scalars"]):
+        raise AssertionError("the headline's 2^16 MSM differs from the "
+                             "native host MSM")
+    log(f"headline ({card}): {head['device_s'] * 1e3:.4f} ms a 2^{LOG_N} "
+        f"msm_many_mont (mean of 3, synchronised); host msm_variable_base "
+        f"{head['host_s']:.4f} s extrapolated from 2^10; the 2^10 sample "
+        f"equals the host MSM and the 2^16 MSM the native host MSM")
+    log(f"launches of the headline (bench region): {launches}")
+    require_launched(launches, ("mont_mul", "padd", "window_fold"),
+                     "headline")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_bench.main(["--only", "msm", "--device", dev.type])
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    if [r["metric"] for r in rows] != [f"device/msm/2^{k}"
+                                       for k in (12, 14, 16)] or not all(
+            math.isfinite(r["value"]) and r["value"] > 0 for r in rows):
+        raise AssertionError(f"--only msm printed {rows}")
+    log(f"entry --only msm ({card}): " + "; ".join(
+        f"{r['metric']} {r['value']} {r['unit']} ({r['ms_per_call']} ms)"
+        for r in rows))
+
+    log(f"window sweep ({card}):")
+    sweep = bench_msm_cwidth.sweep(LOG_N, bench_msm_cwidth.WIDTHS, dev)
+    if sweep["point"] != head["result"]:
+        raise AssertionError("the sweep's MSM differs from the headline's "
+                             "(the same points and scalars)")
+    log(f"MSM probe ({card}):")
+    bench_msm_r3.run((LOG_N,), dev)
+    log(f"transform times ({card}):")
+    bench_ntt_r3.run(bench_ntt_r3.SHAPES, dev)
+    log(f"addition kernels ({card}):")
+    bench_padd.run(*PADD_PROBE, dev)
+
+    work = root / "zkvm_tpu_torch" / "build" / "entry_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen_dryrun_fixture.main(["--out", str(work / "dryrun.bin"),
+                             "--device", dev.type])
+    fixture = Path(dryrun.fixture_path(str(root)))
+    if (work / "dryrun.bin").read_bytes() != fixture.read_bytes():
+        raise AssertionError("the regenerated dryrun fixture differs from "
+                             "tests/fixtures/dryrun_proof_v1.bin")
+    log("gen_dryrun_fixture --out: byte-equal to the committed fixture")
+
+    ctx = msm.MSMContext(head["points"], dev)
+    coeffs = lf.u32_to_tensor(
+        FR.to_mont_array_np([s.value for s in head["scalars"]]), dev)
+    ctx.msm_many_mont([coeffs])
+    with metrics.trace_to(str(work / "trace"), dev):
+        ctx.msm_many_mont([coeffs])
+    traces = list((work / "trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"trace_to wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for kernel in ("padd_kernel", "window_fold_kernel"):
+        if not any(kernel in name for name in names):
+            raise AssertionError(f"the trace of the headline MSM names no "
+                                 f"{kernel}")
+    log(f"trace_to of one headline MSM: {traces[0].stat().st_size} bytes, "
+        f"{len(names)} kernels, padd_kernel x"
+        f"{sum('padd_kernel' in n for n in names)}, window_fold_kernel x"
+        f"{sum('window_fold_kernel' in n for n in names)}")
+    shutil.rmtree(work)
+    return {"launches": launches}
+
+
 def device_rows(prof) -> list[tuple[str, float, int]]:
     """(name, device microseconds, count) of every kernel and copy that
     ran on the card under `prof`, largest first."""
@@ -2731,32 +2846,58 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
+# A window that sees fewer launches of the port's kernels than the wrappers
+# counted (torch.profiler loses records late in a long process; the pad of
+# `metrics.padded_profile` takes the first of them) is taken again, up to
+# PROFILE_TRIES times.
+PROFILE_TRIES = 4
+
+
+def profile_window(fn, reps: int):
+    """`reps` calls of fn() in one `metrics.padded_profile` window, retaken
+    while it saw fewer launches of the port's kernels than the wrappers
+    counted.  Returns (device rows without the pad's, wall ms of the calls,
+    aten::copy_ calls, launches seen, counted, windows taken)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for tries in range(1, PROFILE_TRIES + 1):
+        with metrics.padded_profile(dev) as prof:
+            counted = sum(kernels.LAUNCHES.values())
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counted = sum(kernels.LAUNCHES.values()) - counted
+        rows = [r for r in device_rows(prof)
+                if metrics.PAD_KERNEL not in r[0]]
+        seen = sum(count for name, _, count in rows
+                   if any(k in name for k in OUR_KERNELS))
+        if seen >= counted:
+            break
+    copies = sum(e.count for e in prof.key_averages()
+                 if e.key == "aten::copy_")
+    return rows, wall_ms, copies, seen, counted, tries
+
+
 def profiled(label: str, fn, top: int = 10,
              reps: int = 1) -> list[tuple[str, float, int]]:
-    """`reps` warm calls of fn() under torch.profiler: wall time, device
-    busy time and idle share, the calls of `aten::copy_`, and the largest
-    device items by name (a window of one short launch can come back empty,
-    so the checks of what runs beside one kernel take a few)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """`reps` warm calls of fn() under torch.profiler (`profile_window`):
+    wall time, device busy time and idle share, the calls of
+    `aten::copy_`, the launches of the port's kernels seen against those
+    counted (a window still short after `PROFILE_TRIES` takes is marked
+    incomplete: its busy time undercounts), and the largest device items
+    by name.  Fails if the profiler saw no device time."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
+    rows, wall_ms, copies, seen, counted, tries = profile_window(fn, reps)
     busy_ms = sum(r[1] for r in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    copies = sum(e.count for e in prof.key_averages()
-                 if e.key == "aten::copy_")
     log(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"aten::copy_ x{copies}")
+        f"aten::copy_ x{copies}; the port's kernels: {seen} of {counted} "
+        f"launches seen, window {tries} of {PROFILE_TRIES}"
+        + ("" if seen >= counted else
+           " (INCOMPLETE: the profiler lost launches, busy undercounts)"))
     for name, us, count in rows[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
             f"x{count:<5d} {name[:90]}")
@@ -2805,8 +2946,6 @@ def phase_profile(rng, dev, ck, ok) -> None:
     st_small = field(FR, (5, 8, 4096))
     consts = poseidon.hades_consts(dev)
 
-    from torch.profiler import ProfilerActivity, profile
-
     for label, fn in (
             ("mont_mul Fq [12, 65543]", lambda: kernels.mont_mul(FQ, a, b)),
             ("mont_pow Fq [12, 65543], exponent q - 2",
@@ -2823,16 +2962,10 @@ def phase_profile(rng, dev, ck, ok) -> None:
             ("carry_fold [68, 2^21]", lambda: kernels.carry_fold(d4)),
             ("fold [17, 2^16]", lambda: kernels.fold(fv))):
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        name, us, count = next(r for r in device_rows(prof)
-                               if "_kernel" in r[0])
+        rows, _, _, seen, counted, _ = profile_window(fn, 20)
+        name, us, count = next(r for r in rows if "_kernel" in r[0])
         log(f"  device time per launch, {label}: {us / count / 1e3:.5f} ms "
-            f"(x{count}, {name[:60]})")
+            f"(x{count}, {seen} of {counted} launches seen, {name[:60]})")
 
 
 def main() -> int:
@@ -2874,6 +3007,7 @@ def main() -> int:
                                            mh["ntt_local_err"])
     sv = phase_service(dev, Path(__file__).resolve().parent)
     phase_benches(dev)
+    en = phase_entry(dev, Path(__file__).resolve().parent)
 
     # launches: the sum of the counted regions, each also given apart; no
     # single PyTorch call computes any of the eleven functions (a Montgomery
@@ -2883,7 +3017,8 @@ def main() -> int:
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"], fl["launches"],
-                                 mh["launches"], sv["launches"])))
+                                 mh["launches"], sv["launches"],
+                                 en["launches"])))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

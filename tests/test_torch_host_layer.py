@@ -40,6 +40,8 @@ import zkvm_tpu_torch.serialize as pserialize
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_poseidon import GOLDEN, TEST_INPUTS  # noqa: E402
+import test_hash_to_curve as rfc_g1  # noqa: E402
+import test_hash_to_curve_g2 as rfc_g2  # noqa: E402
 
 # `curves.pairing` as an attribute is the function of that name
 rpairing = importlib.import_module("zkvm_tpu.curves.pairing")
@@ -293,6 +295,47 @@ def test_hash_to_curve_g1_and_g2_equal():
                         .to_bytes()))
         out.append(got)
     assert out[0] == out[1]
+
+
+# RFC 9380's known answers, the case lists of the reference's own tests:
+# (curve, suite, message, expected uncompressed point)
+RFC_CASES = [(curve, suite, msg, want)
+             for curve, mod in (("g1", rfc_g1), ("g2", rfc_g2))
+             for suite, cases in (("NU", mod.ENCODE_CASES),
+                                  ("RO", mod.HASH_CASES))
+             for msg, want in cases]
+
+
+@pytest.mark.parametrize(
+    "curve,suite,msg,want", RFC_CASES,
+    ids=[f"{c}-{s}-{m[:4].decode()}{len(m)}" for c, s, m, _ in RFC_CASES])
+def test_hash_to_curve_rfc9380_vectors_on_the_port(curve, suite, msg, want):
+    """encode_to_curve (NU) and hash_to_curve (RO) of the port, G1 and G2,
+    give the published points."""
+    mod = rfc_g1 if curve == "g1" else rfc_g2
+    fn = getattr(ph2c, ("encode_to_curve_" if suite == "NU"
+                        else "hash_to_curve_") + curve)
+    dst = mod.NU_DST if suite == "NU" else mod.RO_DST
+    assert fn(msg, dst).to_affine().to_uncompressed().hex() == want
+
+
+@pytest.mark.parametrize("name,check", [
+    ("expand_message_xmd", rfc_g1.test_expand_message_xmd_basic),
+    ("expand_message_xof", rfc_g1.test_expand_message_xof_shake128_vectors)])
+def test_expanders_rfc9380_vectors_on_the_port(name, check, monkeypatch):
+    """The reference's expander tests, with the expander they call (its
+    module's name for it, and the reference module's, which the xof test
+    imports when it runs) pointed at the port's."""
+    calls = []
+
+    def port(*args):
+        calls.append(args)
+        return getattr(ph2c, name)(*args)
+
+    monkeypatch.setattr(rfc_g1, name, port, raising=False)
+    monkeypatch.setattr(rh2c, name, port)
+    check()
+    assert calls
 
 
 @pytest.mark.parametrize("domain,sizes,n_out", [

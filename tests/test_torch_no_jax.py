@@ -173,6 +173,55 @@ def test_the_grep_covers_the_mesh_modules():
             "zkvm_tpu_torch/utils/dryrun.py", "chip_smoke.py"} <= names
 
 
+_ENTRY = """
+import sys
+sys.modules["jax"] = None
+sys.modules["zkvm_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from zkvm_tpu_torch import bench
+from zkvm_tpu_torch.curves.g1 import G1Affine
+from zkvm_tpu_torch.fields import Fr
+from zkvm_tpu_torch.ops.msm import msm_device
+from zkvm_tpu_torch.tools import (bench_msm_cwidth, bench_msm_r3,
+                                  bench_ntt_r3, bench_padd,
+                                  gen_dryrun_fixture, gen_native_frob,
+                                  gen_poseidon_constants)
+from zkvm_tpu_torch.utils import trace_to
+from zkvm_tpu_torch.utils.dryrun import load_fixture, write_fixture
+write_fixture(*load_fixture(), sys.argv[1])
+g = G1Affine.generator()
+assert msm_device([g, g, g], [Fr(2), Fr(3)], "cpu") == g.to_projective() * 5
+assert not any(m.split(".")[0] in ("jax", "zkvm_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("\\n".join(gen_native_frob.lines()))
+"""
+
+
+def test_entry_and_tools_run_with_jax_blocked(tmp_path):
+    """The benchmark entry, `trace_to`, `msm_device`, `write_fixture` and
+    every tool of this round import with `jax` and `zkvm_tpu` both
+    blocked; the fixture written equals the committed one and the
+    Frobenius lines equal the reference tool's."""
+    out = tmp_path / "fixture.bin"
+    run = subprocess.run([sys.executable, "-c", _ENTRY, str(out)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    fixture = ROOT / "tests" / "fixtures" / "dryrun_proof_v1.bin"
+    assert out.read_bytes() == fixture.read_bytes()
+    ref = subprocess.run([sys.executable, "tools/gen_native_frob.py"],
+                         cwd=ROOT, capture_output=True, text=True, check=True)
+    assert run.stdout == ref.stdout
+
+
+def test_the_grep_covers_the_entry_and_the_tools():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"zkvm_tpu_torch/{name}.py" for name in (
+        "bench", "tools/bench_msm_cwidth", "tools/bench_msm_r3",
+        "tools/bench_ntt_r3", "tools/bench_padd", "tools/gen_dryrun_fixture",
+        "tools/gen_native_frob", "tools/gen_poseidon_constants")} <= names
+
+
 def test_the_kernel_sources_are_the_built_ones():
     """Every CUDA source of the port is one the library is built from (and
     includes no header but the port's own and the toolkit's)."""

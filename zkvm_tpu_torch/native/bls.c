@@ -377,20 +377,17 @@ static void fp6_inv(fp6 *r, const fp6 *a) {
 }
 
 /* Frobenius coefficients: (u+1)^((p-1)/3), (u+1)^(2(p-1)/3),
- * (u+1)^((p-1)/6) -- generated by tools/gen_native_frob.py */
+ * (u+1)^((p-1)/6) -- generated by
+ * zkvm_tpu_torch/tools/gen_native_frob.py */
 static const fp2 FROB6_C1 = {
-    {{0, 0, 0, 0, 0, 0}},
-    {{0xcd03c9e48671f071ULL, 0x5dab22461fcda5d2ULL, 0x587042afd3851b95ULL,
-      0x8eb60ebe01bacb9eULL, 0x03f97d6e83d050d2ULL, 0x18f0206554638741ULL}}};
+    {{0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL}},
+    {{0xcd03c9e48671f071ULL, 0x5dab22461fcda5d2ULL, 0x587042afd3851b95ULL, 0x8eb60ebe01bacb9eULL, 0x03f97d6e83d050d2ULL, 0x18f0206554638741ULL}}};
 static const fp2 FROB6_C2 = {
-    {{0x890dc9e4867545c3ULL, 0x2af322533285a5d5ULL, 0x50880866309b7e2cULL,
-      0xa20d1b8c7e881024ULL, 0x14e4f04fe2db9068ULL, 0x14e56d3f1564853aULL}},
-    {{0, 0, 0, 0, 0, 0}}};
+    {{0x890dc9e4867545c3ULL, 0x2af322533285a5d5ULL, 0x50880866309b7e2cULL, 0xa20d1b8c7e881024ULL, 0x14e4f04fe2db9068ULL, 0x14e56d3f1564853aULL}},
+    {{0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL}}};
 static const fp2 FROB12_C1 = {
-    {{0x07089552b319d465ULL, 0xc6695f92b50a8313ULL, 0x97e83cccd117228fULL,
-      0xa35baecab2dc29eeULL, 0x1ce393ea5daace4dULL, 0x08f2220fb0fb66ebULL}},
-    {{0xb2f66aad4ce5d646ULL, 0x5842a06bfc497cecULL, 0xcf4895d42599d394ULL,
-      0xc11b9cba40a8e8d0ULL, 0x2e3813cbe5a0de89ULL, 0x110eefda88847fafULL}}};
+    {{0x07089552b319d465ULL, 0xc6695f92b50a8313ULL, 0x97e83cccd117228fULL, 0xa35baecab2dc29eeULL, 0x1ce393ea5daace4dULL, 0x08f2220fb0fb66ebULL}},
+    {{0xb2f66aad4ce5d646ULL, 0x5842a06bfc497cecULL, 0xcf4895d42599d394ULL, 0xc11b9cba40a8e8d0ULL, 0x2e3813cbe5a0de89ULL, 0x110eefda88847fafULL}}};
 
 static void fp6_frob(fp6 *r, const fp6 *a) {
     fp2 t;

@@ -206,11 +206,17 @@ def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
     bucket = torch.where(dflat == 0, sent, dflat.abs())
     bucket = torch.where(pinf[None, :], sent, bucket)
     neg_bit = (dflat < 0).to(torch.int32)
-    idx_bits = max(n - 1, 1).bit_length()
-    if (sent << (idx_bits + 1)) < (1 << 31):
-        return _sort_packed(bucket, neg_bit, idx_bits)
-    # the packed key overflows i32 (from n > 2^17 at c = 13)
+    if packed_key_fits(half, n):
+        return _sort_packed(bucket, neg_bit, max(n - 1, 1).bit_length())
     return _sort_stable(bucket, neg_bit)
+
+
+def packed_key_fits(half: int, n: int) -> bool:
+    """Whether `_sort_digits` packs (bucket, sign, index) of n lanes and
+    `half` buckets into one i32 key; past it (from n > 2^17 at c = 13) the
+    key overflows and the stable sort of (bucket, sign) takes over."""
+    idx_bits = max(n - 1, 1).bit_length()
+    return ((half + 1) << (idx_bits + 1)) < (1 << 31)
 
 
 def _sort_packed(bucket, neg_bit, idx_bits: int):
@@ -471,6 +477,16 @@ class MSMContext:
             c = _window_bits(n_pad)
             sums = _msm_pipeline(c, pm, pinf, limbs, stage)
         return _fold_windows(sums, c, len(sizes), sizes, stage)
+
+
+def msm_device(points: list[G1Affine], scalars: list[Fr],
+               device) -> G1Projective:
+    """One-shot MSM on `device`, the context built per call over the first
+    len(scalars) points (cache an `MSMContext` for hot paths such as
+    `CommitKey.commit`)."""
+    if len(points) < len(scalars):
+        raise ValueError(f"{len(scalars)} scalars for {len(points)} points")
+    return MSMContext(points[:len(scalars)], device).msm(scalars)
 
 
 # -----------------------------------------------------------------------------

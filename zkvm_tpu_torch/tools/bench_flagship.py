@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import torch
 
 from ..utils.benches import run_flagship
+from . import print_card
 
 
 def main(argv=None) -> int:
@@ -34,12 +34,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     dev = torch.device(args.device)
-    if dev.type == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip(),
-            flush=True)
+    print_card(dev)
     r = run_flagship(dev, args.count, args.capacity_log2, args.reps)
     prover = r["prover"]
     warm = sum(r["warm_s"]) / len(r["warm_s"])

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
@@ -27,6 +26,7 @@ from ..ops.collective import Mesh
 from ..rng import StdRng
 from ..utils import dryrun, metrics
 from ..utils.benches import run_flagship
+from . import card
 
 
 def _timed_prove(prover, circuit, mesh=None):
@@ -46,11 +46,8 @@ def main(argv=None) -> int:
                         help="a mesh over cuda:0 .. cuda:<cards-1> (0: none)")
     parser.add_argument("--reps", type=int, default=3)
     args = parser.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card, flush=True)
+    card_name = card()
+    print(card_name, flush=True)
     home = torch.device("cuda", 0)
     meshes = []
     if args.shards:
@@ -80,7 +77,7 @@ def main(argv=None) -> int:
         dryrun.dryrun_multichip(mesh)
         dryrun_s = time.perf_counter() - t0
         print(json.dumps({
-            "mesh": [str(d) for d in mesh.devices], "card": card,
+            "mesh": [str(d) for d in mesh.devices], "card": card_name,
             "first_s": first, "warm_s": warm, "single_warm_s": single,
             "spans_s": {k: v["total_s"] / v["count"]
                         for k, v in spans.items()},

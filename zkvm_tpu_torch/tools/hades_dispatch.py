@@ -29,6 +29,7 @@ import torch
 from ..ops import kernels, poseidon
 from ..ops import limb_field as lf
 from ..ops.limb_field import FR
+from . import card
 from .padd_launch_bounds import device_ms
 
 # threads, blocks an SM
@@ -107,10 +108,7 @@ def states(lanes: int, rng) -> torch.Tensor:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("hades_dispatch: needs an NVIDIA GPU")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print(card())
     builds = {("coop",): start_build("coop", 128, 3, ALWAYS)}
     for threads, blocks in BOUNDS:
         builds[(threads, blocks)] = start_build(f"{threads}x{blocks}",

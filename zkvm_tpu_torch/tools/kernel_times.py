@@ -16,7 +16,6 @@ this one, this one, parent compares the two on one card.
 
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.getcwd())
@@ -26,6 +25,7 @@ import torch  # noqa: E402
 
 from zkvm_tpu_torch.ops import kernels, ntt  # noqa: E402
 from zkvm_tpu_torch.ops import limb_field as lf  # noqa: E402
+from zkvm_tpu_torch.tools import card  # noqa: E402
 from zkvm_tpu_torch.tools.quotient_bounds import (  # noqa: E402
     operands as quotient_operands)
 
@@ -57,10 +57,7 @@ def main() -> int:
     x = lf.u32_to_tensor(a, "cuda")
     tw = ntt.Domain(1 << 19)._butterfly_tables(torch.device("cuda"))[0]
     out = {"checkout": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
-           "card": subprocess.run(
-               ["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"],
-               capture_output=True, text=True).stdout.strip()}
+           "card": card()}
     out["ntt_stages_4x2^19"] = [
         cuda_ms(lambda: kernels.ntt_stages(x, tw), 20) for _ in range(3)]
     for lanes in (1 << 16, 1 << 21):

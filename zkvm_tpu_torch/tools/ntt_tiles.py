@@ -34,6 +34,7 @@ import torch
 from ..ops import kernels, ntt
 from ..ops import limb_field as lf
 from ..ops.limb_field import FR
+from . import card
 
 # threads, blocks an SM, tile (log2 of its Fr elements); each fits the SM's
 # 227 KB of shared memory and 64 K registers at 128 a thread
@@ -190,9 +191,7 @@ def field(shape, rng):
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ntt_tiles: needs an NVIDIA GPU")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print(card())
     rng = np.random.default_rng(5)
     small = field((3, 8, 1 << 13), rng)
     small_tw = ntt.Domain(1 << 13)._butterfly_tables(torch.device("cuda"))[0]

@@ -23,6 +23,7 @@ import torch
 from ..ops import kernels
 from ..ops import limb_field as lf
 from ..ops.limb_field import FQ
+from . import card
 
 BOUNDS = ((128, 4), (128, 3), (128, 2), (256, 2))  # threads, blocks an SM
 SHAPE = (24, 12, 32768)
@@ -103,9 +104,7 @@ def field(shape, rng):
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("padd_launch_bounds: needs an NVIDIA GPU")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print(card())
     rng = np.random.default_rng(4)
     small = [tuple(field((2, 12, 515), rng) for _ in range(3))
              for _ in range(2)]

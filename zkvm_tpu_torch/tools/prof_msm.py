@@ -25,8 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import random
-import subprocess
 import time
 from collections import defaultdict
 
@@ -34,9 +32,10 @@ import torch
 
 from .. import native
 from ..curves.g1 import G1Affine
-from ..fields import Fp, Fr
-from ..ops import g1_ops
+from ..fields import Fp
 from ..ops import msm as M
+from ..utils.benches import msm_inputs
+from . import print_card, sync
 
 
 def main(argv=None) -> int:
@@ -49,21 +48,8 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     n = 1 << args.log_n
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    if dev.type == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip(),
-            flush=True)
-    rng = random.Random(42)
-    points = g1_ops.batch_scalar_mul_base(
-        G1Affine.generator(),
-        [Fr(rng.randrange(Fr.MODULUS)) for _ in range(n)], dev)
-    scalars = [Fr(rng.randrange(Fr.MODULUS)) for _ in range(n)]
+    print_card(dev)
+    points, scalars = msm_inputs(n, dev)  # the headline's
     ctx = M.MSMContext(points, dev)
     if M._granule(n) < M.PTREE_MIN_POINTS:
         raise ValueError(f"{n} points take the scan path, not the tree")
@@ -75,11 +61,11 @@ def main(argv=None) -> int:
             self.name = name
 
         def __enter__(self):
-            sync()
+            sync(dev)
             self.t0 = time.perf_counter()
 
         def __exit__(self, *exc):
-            sync()
+            sync(dev)
             totals[self.name] += time.perf_counter() - self.t0
 
     got = ctx.msm_many([scalars], stage=stage)[0]  # warm-up, size classes
@@ -95,10 +81,10 @@ def main(argv=None) -> int:
         ctx.msm_many([scalars], stage=stage)
     walls = []
     for _ in range(args.reps):
-        sync()
+        sync(dev)
         t0 = time.perf_counter()
         ctx.msm(scalars)
-        sync()
+        sync(dev)
         walls.append(time.perf_counter() - t0)
 
     stages_ms = {k: v / args.reps * 1e3 for k, v in totals.items()}

@@ -35,6 +35,7 @@ from ..ops import kernels
 from ..ops import limb_field as lf
 from ..ops import quotient_kernel as qk
 from ..ops.limb_field import FR
+from . import card
 
 # (threads, blocks an SM, pair bit): the source's first
 CONSTANTS = ("kThreads", "kBlocksPerSm", "kPairBit")
@@ -149,10 +150,7 @@ def operands(lanes: int, rng):
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("quotient_bounds: needs an NVIDIA GPU")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
+    print(card())
     rng = np.random.default_rng(12)
     ops, table = operands(LANES, rng)
     want = kernels.quotient_plain(ops, table)

@@ -1,5 +1,5 @@
-"""Utilities: phase metrics and the dryrun circuit."""
+"""Utilities: phase metrics, device traces and the dryrun circuit."""
 
-from .metrics import Metrics, phase, report
+from .metrics import Metrics, phase, report, trace_to
 
-__all__ = ["Metrics", "phase", "report"]
+__all__ = ["Metrics", "phase", "report", "trace_to"]

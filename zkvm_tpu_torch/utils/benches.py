@@ -30,9 +30,27 @@ def _emit(metric: str, value: float, unit: str, **extra) -> dict:
     return row
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
+    """Wait for `device`'s queued work (nothing to wait for on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def msm_inputs(n: int, device, seed: int = 42):
+    """n points s_i * G for `random.Random(seed)` scalars, made on `device`
+    by the fixed-base kernel path (`g1_ops.batch_scalar_mul_base`), then n
+    MSM scalars from the same stream: the root `bench.py`'s inputs at the
+    default seed.  Returns (points, scalars)."""
+    from ..curves.g1 import G1Affine
+    from ..fields import Fr
+    from ..ops.g1_ops import batch_scalar_mul_base
+
+    rng = random.Random(seed)
+    points = batch_scalar_mul_base(
+        G1Affine.generator(),
+        [Fr(rng.randrange(Fr.MODULUS)) for _ in range(n)], device)
+    scalars = [Fr(rng.randrange(Fr.MODULUS)) for _ in range(n)]
+    return points, scalars
 
 
 def _time_op(fn, reps: int, warmup: int = 2, device=None) -> float:
@@ -41,12 +59,12 @@ def _time_op(fn, reps: int, warmup: int = 2, device=None) -> float:
     for _ in range(warmup):
         fn()
     if device is not None:
-        _sync(device)
+        sync(device)
     t0 = time.monotonic()
     for _ in range(reps):
         fn()
     if device is not None:
-        _sync(device)
+        sync(device)
     return (time.monotonic() - t0) / reps
 
 
@@ -193,17 +211,9 @@ def bench_msm_device(device,
     result is decoded on the host, which synchronises).  The points are
     seeded multiples of the generator made on `device` (the reference's
     row makes them by a host chain of additions: set-up, not timed)."""
-    from ..curves.g1 import G1Affine
-    from ..fields import Fr
-    from ..ops.g1_ops import batch_scalar_mul_base
     from ..ops.msm import MSMContext
 
-    rng = random.Random(16)
-    nmax = max(sizes)
-    points = batch_scalar_mul_base(
-        G1Affine.generator(),
-        [Fr(rng.randrange(Fr.MODULUS)) for _ in range(nmax)], device)
-    scalars = [Fr(rng.randrange(Fr.MODULUS)) for _ in range(nmax)]
+    points, scalars = msm_inputs(max(sizes), device, seed=16)
     ctx = MSMContext(points, device)
     rows = []
     for n in sizes:
@@ -233,19 +243,19 @@ def bench_prove_verify(device, capacity_log2: int = 12) -> list[dict]:
     rows = []
     t0 = time.monotonic()
     pp = PublicParameters.setup(1 << capacity_log2, StdRng(42), device)
-    _sync(device)
+    sync(device)
     rows.append(_emit("e2e/srs_setup", time.monotonic() - t0, "s",
                       capacity=f"2^{capacity_log2}"))
     t0 = time.monotonic()
     prover, verifier = Compiler.compile_with_circuit(
         pp, b"bench", OpeningCircuit(opening, leaf))
-    _sync(device)
+    sync(device)
     rows.append(_emit("e2e/compile", time.monotonic() - t0, "s",
                       gates=prover.constraints, domain=prover.size))
     circ = OpeningCircuit(opening, leaf)
     t0 = time.monotonic()
     proof, pis = prover.prove(StdRng(7), circ)
-    _sync(device)
+    sync(device)
     rows.append(_emit("e2e/prove_first", time.monotonic() - t0, "s"))
     per = _time_op(lambda: prover.prove(StdRng(7), circ), 3, warmup=0,
                    device=device)
@@ -278,15 +288,15 @@ def run_flagship(device, count: int = 21, capacity_log2: int = 17,
     cuda = dev.type == "cuda"
     out = {"circuit": MultiOpeningCircuit.default_for(3, count)}
     PublicParameters.setup(1 << 8, StdRng(0), dev)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     pp = PublicParameters.setup(1 << capacity_log2, StdRng(42), dev)
-    _sync(dev)
+    sync(dev)
     out["setup_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     prover, verifier = Compiler.compile_with_circuit(pp, b"flagship",
                                                      out["circuit"])
-    _sync(dev)
+    sync(dev)
     out["compile_s"] = time.perf_counter() - t0
     out["prover"], out["verifier"] = prover, verifier
 
@@ -294,16 +304,16 @@ def run_flagship(device, count: int = 21, capacity_log2: int = 17,
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     prover.prove(StdRng(7), out["circuit"])
-    _sync(dev)
+    sync(dev)
     out["prove_first_s"] = time.perf_counter() - t0
     metrics.GLOBAL.reset()
     out["warm_s"], blobs = [], set()
     for i in range(reps):
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         with region() if i == 0 else contextlib.nullcontext():
             proof, pis = prover.prove(StdRng(7), out["circuit"])
-            _sync(dev)
+            sync(dev)
         out["warm_s"].append(time.perf_counter() - t0)
         blobs.add(proof.to_bytes())
     out["spans"] = metrics.report()

@@ -4,7 +4,8 @@ The port's own copy of `zkvm_tpu/utils/dryrun.py`: the same circuit (a
 height-1 Poseidon-tree membership opening), the same seeds (setup 42,
 prove 7), capacity and label, so the proof bytes must equal the committed
 fixture `tests/fixtures/dryrun_proof_v1.bin` byte for byte.  Setup, compile
-and prove run on the device the caller names.
+and prove run on the device the caller names.  `load_fixture` reads the
+fixture and `write_fixture` writes it (`tools/gen_dryrun_fixture.py`).
 
 `dryrun_multichip(mesh)` is the port's counterpart of the reference's
 `__graft_entry__.dryrun_multichip`: it runs the sharded pipelines over a
@@ -93,6 +94,22 @@ def load_fixture(path: str | None = None) -> tuple[bytes, list] | None:
     pis = [Fr.from_bytes(buf[off + 32 * i: off + 32 * (i + 1)])
            for i in range(n_pis)]
     return proof_bytes, pis
+
+
+def write_fixture(proof, pis, path: str | None = None) -> int:
+    """Write `proof` (a `Proof` or its bytes) and its public inputs in the
+    fixture's layout -- u32 LE proof length, the proof, u32 LE count, 32
+    bytes an input -- to `path` (default: the committed fixture), the
+    inverse of `load_fixture`; returns the bytes written."""
+    pb = proof if isinstance(proof, bytes) else proof.to_bytes()
+    w = bytearray()
+    w += len(pb).to_bytes(4, "little") + pb
+    w += len(pis).to_bytes(4, "little")
+    for s in pis:
+        w += s.to_bytes()
+    with open(path or fixture_path(), "wb") as f:
+        f.write(w)
+    return len(w)
 
 
 def forest_root(leaves: torch.Tensor, mesh) -> torch.Tensor:
