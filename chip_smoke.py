@@ -2833,12 +2833,18 @@ def phase_entry(dev, root: Path) -> dict:
     return {"launches": launches}
 
 
+# the program's spans (`utils/metrics.py`), profiler ranges inside a
+# `padded_profile` window: their device-side annotations are no device work
+SPAN_PREFIXES = ("prove/", "service/")
+
+
 def device_rows(prof) -> list[tuple[str, float, int]]:
     """(name, device microseconds, count) of every kernel and copy that
     ran on the card under `prof`, largest first."""
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith(SPAN_PREFIXES)):
             continue
         us = (e.self_device_time_total if hasattr(e, "self_device_time_total")
               else e.self_cuda_time_total)

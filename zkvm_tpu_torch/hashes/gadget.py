@@ -12,6 +12,7 @@ from ..params import (HADES_FULL_ROUNDS, HADES_PARTIAL_ROUNDS,
                       HADES_WIDTH as WIDTH)
 from ..plonk.composer import Composer
 from ..plonk.constraint_system import Constraint, Witness
+from ..utils import metrics
 from .poseidon_constants import MDS_MATRIX, ROUND_CONSTANTS
 from .poseidon import Domain, io_pattern
 from .safe import Sponge
@@ -30,14 +31,17 @@ class GadgetPermutation:
 
     # -- SAFE driver interface ---------------------------------------------------
     def permute(self, state: list[Witness]) -> list[Witness]:
+        """One Hades permutation as gates: the span
+        `prove/poseidon_gadget`, inside the prover's witness synthesis."""
         s = list(state)
         half = HADES_FULL_ROUNDS // 2
-        for r in range(half):
-            self._full_round(r, s)
-        for r in range(HADES_PARTIAL_ROUNDS):
-            self._partial_round(half + r, s)
-        for r in range(half):
-            self._full_round(half + HADES_PARTIAL_ROUNDS + r, s)
+        with metrics.GLOBAL.span("prove/poseidon_gadget"):
+            for r in range(half):
+                self._full_round(r, s)
+            for r in range(HADES_PARTIAL_ROUNDS):
+                self._partial_round(half + r, s)
+            for r in range(half):
+                self._full_round(half + HADES_PARTIAL_ROUNDS + r, s)
         return s
 
     def tag(self, data: bytes) -> Witness:

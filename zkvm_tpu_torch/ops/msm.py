@@ -26,17 +26,21 @@ The scan is a log-depth tensor recursion of additions on strided slices,
 the same code on every device.  Projective coordinates therefore differ
 from the reference's (another addition order); results agree as group
 elements.
+
+Each stage is entered through a stage hook, by default the registry span
+`prove/msm/<stage>` (`utils/metrics.py`): the host's time in the stage,
+its launches and any wait on the device (the read-back of `host decode`;
+a blocking copy of a host constant, as in `_park_identity`).
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from ..curves.g1 import G1Affine, G1Projective
 from ..fields import Fp, Fr
+from ..utils import metrics
 
 from . import g1_ops, kernels
 from . import limb_field as lf
@@ -188,9 +192,9 @@ def _weighted_fold(buckets):
     return g1_ops.sum_lanes(_scan_padd(buckets, reverse=True))
 
 
-def _untimed(name: str):
-    """The default stage hook: no measurement."""
-    return contextlib.nullcontext()
+def _span(name: str):
+    """The default stage hook: the registry span `prove/msm/<name>`."""
+    return metrics.GLOBAL.span(f"prove/msm/{name}")
 
 
 def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
@@ -252,7 +256,7 @@ def _gather_points(pm, sid, neg, perm, half: int):
     return _park_identity(sid >= half + 1, (x, y, z))
 
 
-def _sorted_points(c: int, pm, pinf, limbs, stage=_untimed):
+def _sorted_points(c: int, pm, pinf, limbs, stage=_span):
     """Digits -> one packed-key sort per row -> gathered, sign-applied,
     bucket-sorted points.  Returns (sid [B, N] int32, x, y, z [B, 12, N])."""
     half = 1 << (c - 1)
@@ -265,7 +269,7 @@ def _sorted_points(c: int, pm, pinf, limbs, stage=_untimed):
     return sid, x, y, z
 
 
-def _msm_pipeline(c: int, pm, pinf, limbs, stage=_untimed):
+def _msm_pipeline(c: int, pm, pinf, limbs, stage=_span):
     """pm [N, 36] point-major Montgomery coordinates (x|y|z per row), pinf
     [N] infinity flags, limbs [S, 8, N] canonical scalars.  Returns the
     [S*W, 12, 1] x/y/z window sums (set-major).  Prefix-scan buckets.
@@ -306,7 +310,7 @@ def _tree_level(sid, pts, half: int):
     return sr, tuple(pts), (rs, _park_identity(rs >= sent, rej))
 
 
-def _msm_ptree_pipeline(c: int, pm, pinf, limbs, stage=_untimed):
+def _msm_ptree_pipeline(c: int, pm, pinf, limbs, stage=_span):
     """Same contract as `_msm_pipeline`, halving-tree bucket accumulation:
     `_tree_level` while the lanes outnumber the buckets, the residual
     through the prefix-scan tail, and each level's rejects scattered into
@@ -331,7 +335,7 @@ def _msm_ptree_pipeline(c: int, pm, pinf, limbs, stage=_untimed):
 
 
 def _fold_windows(sums, c: int, n_sets: int, set_sizes,
-                  stage=_untimed) -> list[G1Projective]:
+                  stage=_span) -> list[G1Projective]:
     """Window fold (one window_fold launch) + host decode."""
     w_count = sums[0].shape[0] // n_sets
     with stage("window_fold"):
@@ -389,13 +393,13 @@ class MSMContext:
         return self.msm_many([scalars])[0]
 
     def msm_many(self, scalar_sets: list[list[Fr]],
-                 stage=_untimed) -> list[G1Projective]:
+                 stage=_span) -> list[G1Projective]:
         """Several MSMs over (prefixes of) the point set in ONE pipeline:
         per-set digit rows stack along the window axis.  Scalar counts pad
         to a size class; dead lanes never enter a bucket.  `stage(name)`
-        is a context entered around each stage of the pipeline (none by
-        default; `tools/prof_msm.py` passes one that synchronises and
-        times)."""
+        is a context entered around each stage of the pipeline (by
+        default the span `prove/msm/<stage>`; `tools/prof_msm.py` passes
+        one that synchronises and times)."""
         sizes = [len(s) for s in scalar_sets]
         if max(sizes) > self.n:
             raise ValueError(f"{max(sizes)} scalars for {self.n} points")
@@ -429,9 +433,11 @@ class MSMContext:
             mesh.axis(axis)
             return self._run_sharded(coeff_tensors, sizes, mesh)
         n_pad = _granule(max(sizes))
-        padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
-                              for t in coeff_tensors])  # [S, 8, n_pad]
-        return self._run(lf.from_mont(FR, padded), sizes, n_pad)
+        with _span("ingest"):
+            padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
+                                  for t in coeff_tensors])  # [S, 8, n_pad]
+            limbs = lf.from_mont(FR, padded)
+        return self._run(limbs, sizes, n_pad)
 
     def _run_sharded(self, tensors, sizes, mesh) -> list[G1Projective]:
         """Each shard pads to `_granule(ceil(n / D))` and runs the scan
@@ -444,13 +450,14 @@ class MSMContext:
         n_pad = shard * mesh.size
         c = _window_bits(shard)
         pm, pinf = self._padded(n_pad)
-        padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
-                              for t in tensors])  # [S, 8, n_pad]
+        with _span("ingest"):
+            padded = torch.stack([F.pad(t, (0, n_pad - t.shape[-1]))
+                                  for t in tensors])  # [S, 8, n_pad]
+            limbs = [lf.from_mont(FR, x_d) for x_d in mesh.split(padded)]
         sums = []
         for pm_d, pinf_d, x_d in zip(mesh.split(pm, 0), mesh.split(pinf),
-                                     mesh.split(padded)):
-            sums.append(_msm_pipeline(c, pm_d, pinf_d,
-                                      lf.from_mont(FR, x_d)))
+                                     limbs):
+            sums.append(_msm_pipeline(c, pm_d, pinf_d, x_d))
         gathered = tuple(mesh.gather([s[k].unsqueeze(0) for s in sums], 0)
                          for k in range(3))  # x, y, z [D, S*W, 12, 1]
         return _fold_windows(_combine_gathered(gathered), c, len(sizes),
@@ -468,7 +475,7 @@ class MSMContext:
         return ent
 
     def _run(self, limbs, sizes, n_pad,
-             stage=_untimed) -> list[G1Projective]:
+             stage=_span) -> list[G1Projective]:
         pm, pinf = self._padded(n_pad)
         if n_pad >= PTREE_MIN_POINTS:
             c = _ptree_window_bits(n_pad)

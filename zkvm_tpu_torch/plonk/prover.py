@@ -353,31 +353,37 @@ class Prover:
         try:
             with metrics.GLOBAL.span("prove/witness_synthesis"):
                 composer = Composer.prove(self.constraints, circuit)
-        finally:
+        except BaseException:
             if gc_was_enabled:
                 gc.enable()
-        n = self.size
-        dev = self.device
-        domain = Domain(n)
-        transcript = self.transcript.clone()
-        pk = self.prover_key
-        if mesh is None:
-            axis = None
-            rp = _round_programs(pk, domain, dev)
-        else:
-            axis = mesh.axis(shard_axis)
-            if mesh.home != resolve_device(dev):
-                raise ValueError(f"the mesh's home is {mesh.home}, the "
-                                 f"prover's device is {dev}")
-            dev = mesh.home
-            rp = _mesh_round_programs(pk, domain, mesh, axis)
+            raise
+        with metrics.GLOBAL.span("prove/preamble"):
+            # GC comes back on inside the span: the collection that
+            # synthesis deferred runs at the next call and is booked here
+            if gc_was_enabled:
+                gc.enable()
+            n = self.size
+            dev = self.device
+            domain = Domain(n)
+            transcript = self.transcript.clone()
+            pk = self.prover_key
+            if mesh is None:
+                axis = None
+                rp = _round_programs(pk, domain, dev)
+            else:
+                axis = mesh.axis(shard_axis)
+                if mesh.home != resolve_device(dev):
+                    raise ValueError(f"the mesh's home is {mesh.home}, the "
+                                     f"prover's device is {dev}")
+                dev = mesh.home
+                rp = _mesh_round_programs(pk, domain, mesh, axis)
 
-        public_inputs = composer.public_input_values()
-        public_input_indexes = composer.public_input_indexes()
-        dense_public_inputs = Composer.dense_public_inputs(
-            public_input_indexes, public_inputs, n)
-        for pi in public_inputs:
-            transcript.append_scalar(b"pi", pi)
+            public_inputs = composer.public_input_values()
+            public_input_indexes = composer.public_input_indexes()
+            dense_public_inputs = Composer.dense_public_inputs(
+                public_input_indexes, public_inputs, n)
+            for pi in public_inputs:
+                transcript.append_scalar(b"pi", pi)
 
         with metrics.GLOBAL.span("prove/wire_ingest"):
             # one byte-encode per WITNESS, then vectorized numpy gathers
@@ -546,6 +552,10 @@ class Prover:
                 self.commit_key.commit_many_mont([w_z, w_zw], mesh=mesh,
                                                  axis=axis)
 
+        with metrics.GLOBAL.span("prove/release"):
+            # the witness and its gates (~1.4M objects at height 17) are
+            # freed here, by their last references, not unseen on return
+            del composer, wit, gates
         proof = Proof(a_comm, b_comm, c_comm, d_comm, z_comm, t_low_comm,
                       t_mid_comm, t_high_comm, t_fourth_comm, w_z_chall_comm,
                       w_z_chall_w_comm, evaluations)

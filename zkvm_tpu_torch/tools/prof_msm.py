@@ -1,10 +1,11 @@
 """Per-stage profile of one MSM of 2^16 points on the card.
 
 The port's counterpart of `tools/prof_msm.py`.  Calls `MSMContext.
-msm_many` with a stage hook: the pipeline of `ops/msm.py` enters it around
-each of its stages, and the hook synchronises the card on both sides and
-reads the host clock.  It prints the time of each stage, averaged over warm
-repetitions:
+msm_many` with a stage hook of its own in place of the default (the
+registry span `prove/msm/<stage>`, host time alone): the pipeline of
+`ops/msm.py` enters it around each of its stages, and this hook
+synchronises the card on both sides and reads the host clock.  It prints
+the time of each stage, averaged over warm repetitions:
 
   scalar conversion (host ints -> limb tensor on the card), signed digits,
   sort (packed keys, one sort per digit row), gather (the points by that
@@ -14,8 +15,8 @@ repetitions:
   each level's rejects into the buckets, the weighted fold (suffix scan and
   lane sum), the `window_fold` kernel, and the host decode.
 
-The sum of the stages is printed beside the wall of one `msm` call without
-the hook, and the result is held against the host MSM.
+The sum of the stages is printed beside the wall of one `msm` call with
+the default hook, and the result is held against the host MSM.
 
     python3 -m zkvm_tpu_torch.tools.prof_msm [--log-n 16] [--reps 3] \\
         [--device cuda]
@@ -93,7 +94,7 @@ def main(argv=None) -> int:
         print(f"  {name:18s} {ms:9.3f} ms {100 * ms / staged_ms:5.1f}%",
               flush=True)
     wall_ms = sum(walls) / len(walls) * 1e3
-    print(f"stages summed {staged_ms:.3f} ms; one msm without the hook "
+    print(f"stages summed {staged_ms:.3f} ms; one msm with the default hook "
           f"{wall_ms:.3f} ms = {n / wall_ms * 1e3:.1f} points/s", flush=True)
     print(json.dumps({"metric": f"msm_stages_ms_2^{args.log_n}",
                       "stages": stages_ms, "staged_ms": staged_ms,
