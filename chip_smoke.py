@@ -11,7 +11,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the eleven CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the twelve CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
@@ -49,6 +49,15 @@ Phases (any failure exits non-zero; no phase catches its own error):
      the edge values in the first lanes, against its plain version on the
      card, and at 2^19 against the chain of mont_mul and field_addsub
      launches it replaced, timed in turns with it;
+     msm_gather (the MSM's bucket-sorted points gathered, signed and
+     parked, the halving tree's first level added on the way; its
+     registers and spills as ptxas gives them) at the main path's shapes,
+     [104, 33,792] at c = 10 (a proof's commits) and [96, 66,560] at
+     c = 11 (a 2^16 commit), from digits and a sort made by the pipeline's
+     own functions with three rows replaced by one bucket, every pair
+     split and all dead: merge mode, the rejects' gather and the gather of
+     every lane against its plain version on the card (the composition it
+     replaced), each timed beside it;
      padd_ilp (two threads a point on the lazily reduced arithmetic)
      against padd and the plain version at [24, 12, 32768], on p + p and
      on every second lane read in place, and timed in turns with padd;
@@ -175,7 +184,9 @@ Phases (any failure exits non-zero; no phase catches its own error):
      (compile and 32 proves) and the headline (`bench`), reported apart;
      ntt_stages must be launched on the polynomial path, the flagship
      prove, the mesh and the service run, quotient on the flagship prove,
-     the mesh and the service run.
+     the mesh and the service run, msm_gather on every region that
+     commits (the commitment and polynomial paths, the flagship prove,
+     the mesh, the service run and the headline).
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -277,7 +288,7 @@ WORST_COLUMN = 32 * 256 * 255 * 255
 # the field additions that jit fuses into every program: add / sub / neg of
 # limb_field, and the quotient round's two jitted programs,
 # quotient_numerator and pointwise_divide, which have no Pallas site of
-# their own)
+# their own); msm_gather replaces no TPU kernel
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -301,12 +312,15 @@ KERNELS = {
                      "zkvm_tpu/ops/limb_field.py:205"),
     "quotient": ("zkvm_tpu_torch/csrc/quotient.cu",
                  "zkvm_tpu/ops/quotient_kernel.py:73"),
+    "msm_gather": ("zkvm_tpu_torch/csrc/msm_gather.cu",
+                   "none: a kernel of the port alone (on the TPU, XLA "
+                   "operations of zkvm_tpu/ops/msm.py around padd_pallas_2l)"),
 }
 # how the port's CUDA kernels are named in a profile
 OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "padd_ilp_kernel", "window_fold_kernel", "ntt_pass_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
-               "field_addsub_kernel", "quotient_kernel")
+               "field_addsub_kernel", "quotient_kernel", "msm_gather_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
            "padd_comparison", "prove_path", "mesh", "service", "bench")
 
@@ -624,6 +638,7 @@ def phase_parity(rng, dev) -> dict:
     phase_parity_hades(rng, dev, rec)
     # its own generator: the draws of the later phases stay as they were
     phase_parity_quotient(np.random.default_rng(SEED + 5), dev, rec)
+    phase_parity_msm_gather(np.random.default_rng(SEED + 6), dev, rec)
 
     card = card_line()
     for name, r in rec.items():
@@ -1259,6 +1274,111 @@ def phase_parity_quotient(rng, dev, rec) -> None:
     rec["quotient"]["max_abs_err"] = err
 
 
+# the halving tree's shapes on the main paths: (c, sets, N) of a proof's
+# commits of four polynomials (n_pad 33,792: 104 digit rows) and of the
+# commit of four 2^16 polynomials (n_pad 66,560: 96 digit rows)
+MSM_GATHER_SHAPES = ((10, 4, 33792), (11, 4, 66560))
+# Fq products of one merged pair: the affine addition (z1 = z2 = 1)
+MSM_GATHER_PRODUCTS = 9
+
+
+def msm_gather_operands(rng, c: int, sets: int, n: int, dev):
+    """The inputs of one halving-tree commit at its shape: a point-major
+    matrix [n, 36] of random x, y at z = 1 (as `msm.MSMContext` holds its
+    points) with 1% of its rows at infinity, random scalars with the last
+    sets' tail zero (padding), digits and the sort by the pipeline's own
+    functions; then rows 0-2 replaced by one bucket, every pair split, and
+    all dead, their lanes reading the points not at infinity (a live lane
+    reads an affine point).  Returns (pm, sid, neg, perm, half)."""
+    half = 1 << (c - 1)
+    a = rand_field(FQ, (3, 12, n), rng)
+    a[2] = FQ.one_mont[:, None]
+    inf = rng.random(n) < 0.01
+    a[:, :, inf] = 0
+    a[1][:, inf] = FQ.one_mont[:, None]
+    pm = lf.u32_to_tensor(a.reshape(36, n).T.copy(), dev)
+    pinf = torch.as_tensor(inf, device=dev)
+    scalars = rand_field(FR, (sets, 8, n), rng)
+    scalars[sets - 1, :, n - n // 7:] = 0
+    d = msm._signed_digit_tensors(lf.u32_to_tensor(scalars, dev), c)
+    sid, neg, perm = msm._sort_digits(d, pinf, half)
+    lane = torch.arange(n, device=dev, dtype=torch.int32)
+    live = torch.nonzero(~pinf).flatten()
+    perm[:3] = live[lane.long() % live.numel()]
+    sid[0] = 3
+    sid[1] = torch.clamp((lane + 1) // 2 + 1, max=half + 1)
+    sid[2] = half + 1
+    return pm, sid.contiguous(), neg.contiguous(), perm.contiguous(), half
+
+
+def phase_parity_msm_gather(rng, dev, rec) -> None:
+    """msm_gather against its plain version (the composition it replaced:
+    row gather, masked negation, parks, padd and select) on the card, bit
+    for bit, at MSM_GATHER_SHAPES: merge mode, the rejects' gather at
+    twice their lanes, and the scan path's gather of every lane; each
+    timed beside its plain version.  The bound of merge mode counts the
+    products of its merged pairs and its device-memory bytes (the sort's
+    13 bytes a lane read, 148 a pair written; the point matrix is L2
+    traffic).  It prints what ptxas said of both modes."""
+    card = card_line()
+    usage = (f"merge mode: {ptxas_usage('msm_gather_kernelILb1')}; gather "
+             f"mode: {ptxas_usage('msm_gather_kernelILb0')}"
+             if kernels.BUILD_LOG
+             else "not in this process (the library was built by another)")
+    log(f"msm_gather, ptxas -v: {usage}")
+    out = {}
+    for c, sets, n in MSM_GATHER_SHAPES:
+        pm, sid, neg, perm, half = msm_gather_operands(rng, c, sets, n, dev)
+        b = sid.shape[0]
+        before = kernels.LAUNCHES["msm_gather"]
+        pts, rsid = kernels.msm_gather(pm, sid, neg, perm, half, pairs=True)
+        if kernels.LAUNCHES["msm_gather"] != before + 1:
+            raise AssertionError("msm_gather did not launch once")
+        want, want_rsid = kernels.msm_gather_plain(pm, sid, neg, perm, half,
+                                                   pairs=True)
+        err = max(max_abs_err(pts, want), max_abs_err(rsid, want_rsid))
+        rs, rp = msm._compact_rejects(rsid, half)
+        src = rp * 2
+        err = max(err, max_abs_err(
+            kernels.msm_gather(pm, rs, neg, perm, half, src=src),
+            kernels.msm_gather_plain(pm, rs, neg, perm, half, src=src)))
+        err = max(err, max_abs_err(
+            kernels.msm_gather(pm, sid, neg, perm, half),
+            kernels.msm_gather_plain(pm, sid, neg, perm, half)))
+        del pts, want, want_rsid
+        merged = int(((sid[:, 0::2] == sid[:, 1::2])
+                      & (sid[:, 0::2] <= half)).sum())
+        bd = bound(13 * b * n + 148 * b * (n // 2),
+                   merged * MSM_GATHER_PRODUCTS * mont_mul_ops(12))
+        ms = cuda_ms(lambda: kernels.msm_gather(pm, sid, neg, perm, half,
+                                                pairs=True), 10)
+        plain_ms = cuda_ms(lambda: kernels.msm_gather_plain(
+            pm, sid, neg, perm, half, pairs=True), 3)
+        rej_ms = cuda_ms(lambda: kernels.msm_gather(pm, rs, neg, perm, half,
+                                                    src=src), 10)
+        rej_plain_ms = cuda_ms(lambda: kernels.msm_gather_plain(
+            pm, rs, neg, perm, half, src=src), 3)
+        gather_ms = cuda_ms(lambda: kernels.msm_gather(pm, sid, neg, perm,
+                                                       half), 10)
+        shape = f"[{b}, {n}], c = {c}"
+        log(f"msm_gather at {shape} ({merged} merged pairs of {b * n // 2}): "
+            f"max abs err {err}; merge mode {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+            f"({bd['bound_ms'] / ms:.3f} of it); the rejects' gather "
+            f"{rej_ms:.4f} ms (plain {rej_plain_ms:.4f}); every lane "
+            f"gathered {gather_ms:.4f} ms; {card}")
+        out[c] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape,
+                      merged_pairs=merged, rejects_ms=rej_ms,
+                      rejects_plain_ms=rej_plain_ms, gather_ms=gather_ms,
+                      **bd)
+        del pm, sid, neg, perm, rsid, rs, rp, src
+    first, second = (out[c] for c, _, _ in MSM_GATHER_SHAPES)
+    rec["msm_gather"] = dict(
+        first, ptxas=usage,
+        max_abs_err=max(first["max_abs_err"], second["max_abs_err"]),
+        **{f"{k}_2": v for k, v in second.items() if k != "max_abs_err"})
+
+
 def hades_bounds(lanes: int) -> dict:
     """The kernel's bound (its own arithmetic) and the earlier one (2000
     products a permutation), same bytes."""
@@ -1459,8 +1579,8 @@ def phase_slice(rng, dev) -> dict:
     log("commit: 4 + 1 commitments equal the native host MSM over 2^16")
 
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
-                                "window_fold", "field_addsub"),
-                     "commitment path")
+                                "window_fold", "field_addsub",
+                                "msm_gather"), "commitment path")
     out["launches"] = launches
     out["commit_key"] = ck
     out["opening_key"] = pp.opening_key
@@ -1776,7 +1896,8 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     log("commit: the first blinded commitment equals the native host MSM")
 
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "ntt_stages"), "polynomial path")
+                                "ntt_stages", "msm_gather"),
+                     "polynomial path")
     require_launched(crosscheck, ("mont_mul", "ntt_stages", "carry_fold",
                                   "fold"), "whole-transform cross-checks")
     out["launches"] = launches
@@ -2293,8 +2414,8 @@ def phase_prove_flagship(dev) -> dict:
         f"share of a warm prove {out['busy_share']:.4f} (device busy "
         f"{busy:.3f} ms over the mean warm wall without the profiler)")
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "ntt_stages", "field_addsub", "quotient"),
-                     "flagship prove")
+                                "ntt_stages", "field_addsub", "quotient",
+                                "msm_gather"), "flagship prove")
     out["launches"] = launches
 
     with staged_operands({}) as seen, quotient_operands_checked({}) as qs:
@@ -2562,7 +2683,8 @@ def phase_mesh(rng, dev, fl) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s")
     require_launched(launches, ("padd", "window_fold", "mont_mul",
                                 "ntt_stages", "field_addsub",
-                                "hades_permute", "quotient"), "mesh path")
+                                "hades_permute", "quotient",
+                                "msm_gather"), "mesh path")
     out["launches"] = launches
     return out
 
@@ -2716,7 +2838,7 @@ def phase_service(dev, root: Path) -> dict:
         f"proves): {launches}")
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
                                 "window_fold", "ntt_stages", "field_addsub",
-                                "quotient"), "service run")
+                                "quotient", "msm_gather"), "service run")
     shutil.rmtree(work)
     return {"launches": launches}
 
@@ -2772,8 +2894,8 @@ def phase_entry(dev, root: Path) -> dict:
         f"{head['host_s']:.4f} s extrapolated from 2^10; the 2^10 sample "
         f"equals the host MSM and the 2^16 MSM the native host MSM")
     log(f"launches of the headline (bench region): {launches}")
-    require_launched(launches, ("mont_mul", "padd", "window_fold"),
-                     "headline")
+    require_launched(launches, ("mont_mul", "padd", "window_fold",
+                                "msm_gather"), "headline")
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3016,10 +3138,10 @@ def main() -> int:
     en = phase_entry(dev, Path(__file__).resolve().parent)
 
     # launches: the sum of the counted regions, each also given apart; no
-    # single PyTorch call computes any of the eleven functions (a Montgomery
+    # single PyTorch call computes any of the twelve functions (a Montgomery
     # product or power on limbs, a curve addition, a permutation over Fr, a
-    # modular addition on limbs, the quotient's field expression), so there
-    # is no library time
+    # modular addition on limbs, the quotient's field expression, a signed
+    # gather with a curve addition), so there is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"], fl["launches"],

@@ -151,8 +151,10 @@ def test_masked_ops_select_per_lane(name, op, monkeypatch):
 
 
 def test_msm_select_of_a_negation_is_one_masked_pass(monkeypatch):
-    """`ops/msm.py` negates the y of the points whose digit is negative in
-    one masked pass over the strided gather (no select after it)."""
+    """The MSM's gather on the CPU (`kernels.msm_gather_plain`, reached
+    through `ops/msm.py`) negates the y of the points whose digit is
+    negative in one masked pass over the strided gather (no select after
+    it)."""
     from zkvm_tpu_torch.ops import msm
 
     seen = _watch(monkeypatch)

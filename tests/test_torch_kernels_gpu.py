@@ -526,3 +526,71 @@ def test_gate1_prove_on_card_equals_cpu(cuda):
     on_cpu, _ = Prover.try_from_bytes(pb, "cpu").prove(StdRng(5),
                                                        FixedCircuit())
     assert on_card.to_bytes() == on_cpu.to_bytes()
+
+
+# the shapes of the two benchmark cells' commits: (c, N) of a proof's
+# commits (n_pad 33,792) and of a 2^16 commit (66,560); a few digit rows
+@pytest.mark.parametrize("c,n", [(10, 33792), (11, 66560)])
+def test_msm_gather_kernel_matches_plain(cuda, c, n):
+    """Merge mode, the rejects' gather at twice their lanes and the scan
+    path's gather, against the composition they replace, bit for bit: rows
+    of random buckets with dead lanes, one bucket, every pair split, all
+    dead, a padded tail; points at z = 1, as every live row of the point
+    matrix is, and at infinity."""
+    from test_torch_msm_gather import field_rows, sorted_rows
+    from zkvm_tpu_torch.ops import msm
+
+    half = 1 << (c - 1)
+    pm = field_rows(n, c)
+    sid, neg, perm = (t.to(cuda) for t in sorted_rows(n, half, pm, c))
+    pm = pm.to(cuda)
+    before = kernels.LAUNCHES["msm_gather"]
+    pts, rsid = kernels.msm_gather(pm, sid, neg, perm, half, pairs=True)
+    assert kernels.LAUNCHES["msm_gather"] == before + 1
+    want, want_rsid = kernels.msm_gather_plain(pm, sid, neg, perm, half,
+                                               pairs=True)
+    assert torch.equal(rsid, want_rsid)
+    for g, w in zip(pts, want):
+        assert g.is_contiguous() and torch.equal(g, w)
+    rs, rp = msm._compact_rejects(rsid, half)
+    for key, src in ((rs, rp * 2), (sid, None)):
+        got = kernels.msm_gather(pm, key, neg, perm, half, src=src)
+        want = kernels.msm_gather_plain(pm, key, neg, perm, half, src=src)
+        for g, w in zip(got, want):
+            assert g.is_contiguous() and torch.equal(g, w)
+
+
+def test_halving_tree_commit_on_card_matches_host(cuda):
+    """Two sets over 2^14 points (the halving tree, five levels; the second
+    set's padding lanes dead), a point at infinity, a doubling in a bucket
+    and zero scalars, against the host MSM."""
+    from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective
+    from zkvm_tpu_torch.ops import msm
+
+    n = msm.PTREE_MIN_POINTS
+    rng = np.random.default_rng(31)
+    g = G1Projective.generator()
+    a = g * int(rng.integers(1, 1 << 62))
+    step = g * int(rng.integers(1, 1 << 62))
+    pts = []
+    for _ in range(n):
+        pts.append(a)
+        a = a + step
+    points = G1Projective.batch_normalize(pts)
+    points[7] = G1Affine.identity()
+    points[9] = points[8]
+    words = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64).tolist()
+    scalars = [Fr(sum(int(w) << (63 * k) for k, w in enumerate(row)))
+               for row in words]
+    scalars[8], scalars[9], scalars[10] = scalars[9], scalars[9], Fr.zero()
+    sets = [scalars, scalars[:5000]]
+    before = kernels.LAUNCHES["msm_gather"]
+    got = msm.MSMContext(points, cuda).msm_many(sets)
+    assert kernels.LAUNCHES["msm_gather"] == before + 2
+    ref_points = [RG1Affine.identity() if p.infinity
+                  else RG1Affine(RFp(p.x.value), RFp(p.y.value))
+                  for p in points]
+    for point, s in zip(got, sets):
+        want = ref_msm_variable_base(ref_points[:len(s)],
+                                     [RFr(x.value) for x in s])
+        assert point.to_affine().to_bytes() == want.to_affine().to_bytes()

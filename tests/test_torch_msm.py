@@ -206,8 +206,9 @@ def test_stage_hook_on_the_scan_path():
 
 def test_stage_hook_on_the_halving_tree():
     """The halving tree forced at n = 1024, c = 10 (one level): the hook
-    sees each level, the scan tail, the reject folds and the fold stages,
-    and the hooked pipeline gives the host's point."""
+    sees each level (the first one gathers the sorted points: there is no
+    gather stage of its own), the scan tail, the reject folds and the fold
+    stages, and the hooked pipeline gives the host's point."""
     n, c = 1024, 10
     points = _points(n, 9)
     scalars = _scalars(n, 10)
@@ -217,7 +218,7 @@ def test_stage_hook_on_the_halving_tree():
     rec = _Recorder()
     sums = msm._msm_ptree_pipeline(c, pm, pinf, limbs, rec)
     got = msm._fold_windows(sums, c, 1, [n], rec)[0]
-    assert rec.names == ["signed digits", "sort", "gather", "tree level 1",
+    assert rec.names == ["signed digits", "sort", "tree level 1",
                          "scan tail", "reject folds", "weighted fold",
                          "window_fold", "host decode"]
     assert got.to_affine().to_bytes() == _ref_msm_bytes(points, scalars)

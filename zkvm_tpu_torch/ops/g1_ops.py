@@ -102,6 +102,15 @@ def pselect(mask, p, q):
     return tuple(lf.select(mask, a, b) for a, b in zip(p, q))
 
 
+def park_identity(mask, pts):
+    """Lanes where the [..., B] mask is set become the identity (0 : 1 : 0)."""
+    x, y, z = pts
+    one = lf.u32_to_tensor(FQ.one_mont[:, None], x.device)
+    m = mask.unsqueeze(-2)
+    return (torch.where(m, 0, x), torch.where(m, one, y),
+            torch.where(m, 0, z))
+
+
 def identity_batch(shape, device):
     """Identity points (0 : 1 : 0), batch dims (*shape[:-1], 12, shape[-1])."""
     full = tuple(shape[:-1]) + (FQ.n_limbs,) + tuple(shape[-1:])

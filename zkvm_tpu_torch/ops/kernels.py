@@ -1,6 +1,6 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Eleven kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Twelve kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas` (reads broadcast
                    and strided operands in place)
@@ -30,17 +30,23 @@ Eleven kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
                    `pointwise_divide`): the numerator of the gate and
                    permutation identities times Z_H^-1, lane by lane, in
                    one launch
+  * `msm_gather`   a kernel of the port alone, with no TPU counterpart: the
+                   MSM's bucket-sorted points (a row gather of the
+                   point-major matrix, y negated by the digit's sign, dead
+                   lanes parked) with the first level of the halving tree
+                   added on the way (`ops/msm.py`)
 
 They are compiled with `nvcc` (one process per source, all started
 together) and linked into one shared library with a plain C interface on
 first use (never at import), cached under `zkvm_tpu_torch/build/` by a hash
 of the sources, and bound with ctypes.
 
-`padd`, `padd_ilp`, `window_fold` and the Fq chain of `mont_pow` share the
-lazily reduced carry-flag arithmetic of `csrc/fq_lazy.cuh`; `hades_permute`,
-`ntt_stages`, `carry_fold`, `fold`, `quotient` and the Fr chain of
-`mont_pow` that of `csrc/fr_lazy.cuh` (Fr leaves less room: its ranges are
-stated there); the other kernels use `csrc/field.cuh`.
+`padd`, `padd_ilp`, `window_fold`, `msm_gather` and the Fq chain of
+`mont_pow` share the lazily reduced carry-flag arithmetic of
+`csrc/fq_lazy.cuh`; `hades_permute`, `ntt_stages`, `carry_fold`, `fold`,
+`quotient` and the Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr
+leaves less room: its ranges are stated there); the other kernels use
+`csrc/field.cuh`.
 `fq_mul_chain` (one warp, a chain of dependent Fq products) and
 `empty_launch` are measuring probes, not kernels of any path: they have no
 count.
@@ -75,14 +81,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "ntt.cu",
             "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu",
-            "quotient.cu")
+            "quotient.cu", "msm_gather.cu")
 _HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
 # launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
             "ntt_stages": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
-            "padd_ilp": 0, "field_addsub": 0, "quotient": 0}
+            "padd_ilp": 0, "field_addsub": 0, "quotient": 0,
+            "msm_gather": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -159,11 +166,12 @@ def build() -> float:
     lib.zk_padd_ilp.argtypes = [_P] * 9 + [_LL, _LL, _P, _P]
     lib.zk_field_addsub.argtypes = [_I, _I, _P, _P, _P, _P, _LL, _LL, _P, _P]
     lib.zk_quotient.argtypes = [_P, _P, _P, _P, _LL, _P]
+    lib.zk_msm_gather.argtypes = [_P] * 9 + [_LL, _LL, _LL, _I, _P]
     for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
                lib.zk_padd, lib.zk_window_fold, lib.zk_ntt_pass,
                lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
                lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub,
-               lib.zk_quotient):
+               lib.zk_quotient, lib.zk_msm_gather):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -599,6 +607,95 @@ def padd_ilp(p, q, layouts=None):
     if layouts is None:
         layouts = (padd_layout(p), padd_layout(q))
     return _add_points("padd_ilp", p, q, layouts)
+
+
+# -----------------------------------------------------------------------------
+# msm_gather
+# -----------------------------------------------------------------------------
+
+def msm_gather_plain(pm, sid, neg, perm, half: int, src=None,
+                     pairs: bool = False):
+    """Plain version of the msm_gather kernel: the PyTorch composition it
+    replaces.  A row gather of `pm` by the permutation (read at `src`), the
+    masked negation of y, the identity parked where the bucket id is above
+    `half`; in merge mode `padd` of the even and odd lanes, kept where the
+    two share a bucket, and the left lanes' ids where they do not."""
+    from . import g1_ops  # g1_ops imports this module
+
+    if src is not None:
+        at = src.to(torch.int64).clamp(0, perm.shape[-1] - 1)
+        neg, perm = neg.gather(1, at), perm.gather(1, at)
+    b, k = perm.shape
+    l = FQ.n_limbs
+    g = pm.index_select(0, perm.reshape(-1))             # [B*K, 36]
+    g = g.reshape(b, k, 3 * l).transpose(1, 2)           # [B, 36, K]
+    x, y, z = g[:, :l], g[:, l:2 * l], g[:, 2 * l:]
+    pts = g1_ops.park_identity(sid > half, (x, lf.neg(FQ, y, mask=neg), z))
+    if not pairs:
+        return pts
+    left = tuple(t[..., 0::2] for t in pts)
+    right = tuple(t[..., 1::2] for t in pts)
+    sl, sr = sid[:, 0::2], sid[:, 1::2]
+    same = sl == sr
+    return (g1_ops.pselect(same, g1_ops.padd(left, right), right),
+            torch.where(same, half + 1, sl))
+
+
+def msm_gather(pm, sid, neg, perm, half: int, src=None, pairs: bool = False):
+    """The MSM's bucket-sorted points from one sort per digit row: sid [B, N]
+    int32 ascending bucket ids (dead lanes above `half`), neg [B, N] bool
+    signs and perm [B, N] int64 rows of the point-major pm [rows, 36].  The
+    point of sorted lane i is pm[perm[:, i]], y negated where neg is set,
+    the identity where sid > half.  Every row a live lane reads is affine
+    (z = 1), as `msm.MSMContext` holds its points: the kernel adds pairs by
+    the affine formula.
+
+    Merge mode (`pairs`): lanes 2j and 2j + 1 added where they share a
+    bucket, else lane 2j + 1; returns (x, y, z) [B, 12, N/2] and the left
+    lanes' ids [B, N/2] int32 (half + 1 where merged).  Gather mode: the
+    points of the sorted lanes src [B, K] int32 (all N when `src` is None),
+    sid then being the output lanes' [B, K] ids; returns (x, y, z) [B, 12,
+    K].  Outputs are contiguous and canonical."""
+    if perm.dim() != 2:
+        raise ValueError(f"msm_gather: perm of shape {tuple(perm.shape)} is "
+                         f"not [B, N]")
+    b, n = perm.shape
+    if pairs and (src is not None or n % 2):
+        raise ValueError("msm_gather: merge mode takes an even N and no src")
+    k = n // 2 if pairs else (n if src is None else src.shape[-1])
+    specs = [(pm, torch.int32, (pm.shape[0], 3 * FQ.n_limbs)),
+             (sid, torch.int32, (b, n if pairs else k)),
+             (neg, torch.bool, (b, n)), (perm, torch.int64, (b, n))]
+    if src is not None:
+        specs.append((src, torch.int32, (b, k)))
+    dev = pm.device
+    for t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"msm_gather: {t.dtype} {tuple(t.shape)}, "
+                             f"expected {dtype} {shape}")
+        if t.device != dev:
+            raise ValueError(f"msm_gather: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("msm_gather: operands must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"msm_gather: unsupported device {dev}")
+    if dev.type == "cpu":
+        return msm_gather_plain(pm, sid, neg, perm, half, src, pairs)
+    if pm.data_ptr() % 16:
+        raise ValueError("msm_gather: pm must be 16-byte aligned")
+    out = tuple(torch.empty((b, FQ.n_limbs, k), dtype=torch.int32,
+                            device=dev) for _ in range(3))
+    rsid = torch.empty((b, k), dtype=torch.int32, device=dev) if pairs else None
+    if b * k:
+        build()
+        with torch.cuda.device(dev):
+            _launch("msm_gather", _lib.zk_msm_gather, pm.data_ptr(),
+                    sid.data_ptr(), neg.data_ptr(), perm.data_ptr(),
+                    None if src is None else src.data_ptr(),
+                    *(t.data_ptr() for t in out),
+                    None if rsid is None else rsid.data_ptr(), b, k, n, half,
+                    _stream(dev))
+    return (out, rsid) if pairs else out
 
 
 # -----------------------------------------------------------------------------

@@ -11,13 +11,16 @@ step for step:
   4. bucket accumulation: an inclusive prefix scan (`_msm_pipeline`), or
      for N >= PTREE_MIN_POINTS the halving tree (`_msm_ptree_pipeline`),
      which merges adjacent same-bucket lanes with one addition per level
-     and compacts the rejects;
+     and compacts the rejects.  Step 3 is the `msm_gather` kernel: on the
+     tree it adds the first level's pairs as it gathers them, so the
+     sorted points are never written at full width;
   5. bucket sums as differences of prefix values at bucket boundaries;
   6. the weighted fold sum_b b * S_b as suffix sums plus a lane reduction;
   7. the window fold sum_w 2^(c w) * T_w, one `window_fold` kernel launch.
 
-Every point addition goes through the padd kernel and the final fold
-through the window_fold kernel (their plain versions for CPU tensors).
+Every other point addition goes through the padd kernel and the final
+fold through the window_fold kernel (their plain versions for CPU
+tensors).
 On a mesh (`msm_sharded`, `MSMContext.msm_many_mont(mesh=...)`) each
 shard runs steps 1-6 on its slice of the points with the prefix scan, and
 the shards' window sums are added in shard order before step 7.
@@ -30,7 +33,7 @@ elements.
 Each stage is entered through a stage hook, by default the registry span
 `prove/msm/<stage>` (`utils/metrics.py`): the host's time in the stage,
 its launches and any wait on the device (the read-back of `host decode`;
-a blocking copy of a host constant, as in `_park_identity`).
+a blocking copy of a host constant, as in `g1_ops.park_identity`).
 """
 
 from __future__ import annotations
@@ -147,15 +150,6 @@ def _gather_lanes(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 2, idx[:, None, :].expand(-1, t.shape[1], -1))
 
 
-def _park_identity(mask: torch.Tensor, pts):
-    """Lanes where mask is set become the identity (0 : 1 : 0)."""
-    x, y, z = pts
-    one = lf.u32_to_tensor(FQ.one_mont[:, None], x.device)
-    m = mask.unsqueeze(-2)
-    return (torch.where(m, 0, x), torch.where(m, one, y),
-            torch.where(m, 0, z))
-
-
 def _bucket_sums_dense(sb, x, y, z, half: int):
     """Bucket-sorted points -> dense bucket sums [B, 12, half].
 
@@ -183,7 +177,7 @@ def _scatter_dense(rs, coords, half: int):
     idx = torch.searchsorted(rs.contiguous(), targets).clamp_(max=half - 1)
     found = torch.gather(rs, 1, idx) == targets
     out = tuple(_gather_lanes(t, idx) for t in coords)
-    return _park_identity(~found, out)
+    return g1_ops.park_identity(~found, out)
 
 
 def _weighted_fold(buckets):
@@ -243,29 +237,22 @@ def _sort_stable(bucket, neg_bit):
     return key >> 1, (key & 1) == 1, perm
 
 
-def _gather_points(pm, sid, neg, perm, half: int):
-    """Rows of the point-major [N, 36] matrix by the sort's permutation ->
-    x, y, z [B, 12, N], y negated where the digit is negative, dead lanes
-    parked at the identity."""
-    b, n = sid.shape
-    l = FQ.n_limbs
-    g = pm.index_select(0, perm.reshape(-1))             # [B*N, 36]
-    g = g.reshape(b, n, 3 * l).transpose(1, 2)           # [B, 36, N]
-    x, y, z = g[:, :l], g[:, l:2 * l], g[:, 2 * l:]
-    y = lf.neg(FQ, y, mask=neg)
-    return _park_identity(sid >= half + 1, (x, y, z))
-
-
-def _sorted_points(c: int, pm, pinf, limbs, stage=_span):
-    """Digits -> one packed-key sort per row -> gathered, sign-applied,
-    bucket-sorted points.  Returns (sid [B, N] int32, x, y, z [B, 12, N])."""
+def _sorted_digits(c: int, pinf, limbs, stage=_span):
+    """Digits -> one packed-key sort per row: (sid, neg, perm) [B, N]."""
     half = 1 << (c - 1)
     with stage("signed digits"):
         d = _signed_digit_tensors(limbs, c)
     with stage("sort"):
-        sid, neg, perm = _sort_digits(d, pinf, half)
+        return _sort_digits(d, pinf, half)
+
+
+def _sorted_points(c: int, pm, pinf, limbs, stage=_span):
+    """Digits -> sort -> gathered, sign-applied, bucket-sorted points (the
+    `msm_gather` kernel in gather mode).  Returns (sid [B, N] int32, x, y,
+    z [B, 12, N])."""
+    sid, neg, perm = _sorted_digits(c, pinf, limbs, stage)
     with stage("gather"):
-        x, y, z = _gather_points(pm, sid, neg, perm, half)
+        x, y, z = kernels.msm_gather(pm, sid, neg, perm, 1 << (c - 1))
     return sid, x, y, z
 
 
@@ -282,48 +269,73 @@ def _msm_pipeline(c: int, pm, pinf, limbs, stage=_span):
         return _weighted_fold(buckets)
 
 
+def _compact_rejects(rsid, half: int):
+    """A level's left-lane ids [B, m] (sentinel where merged; the others at
+    most one per bucket, so distinct) -> compacted AND sorted ascending
+    into `half` slots (the dense scatter binary-searches): (rs [B, half]
+    ids, rp [B, half] int32 lane positions)."""
+    m = rsid.shape[-1]
+    if m < half:
+        rsid = F.pad(rsid, (0, half - m), value=half + 1)
+        m = half
+    pos_bits = max(m - 1, 1).bit_length()
+    riota = torch.arange(m, dtype=torch.int32, device=rsid.device)
+    rpacked = torch.sort((rsid << pos_bits) | riota, dim=-1).values[:, :half]
+    return rpacked >> pos_bits, rpacked & ((1 << pos_bits) - 1)
+
+
+def _first_level(pm, sid, neg, perm, half: int):
+    """The halving tree's first level straight from the sort: the
+    `msm_gather` kernel in merge mode, then its rejects (the left lanes of
+    the bucket-boundary pairs) in gather mode.  Same returns as
+    `_tree_level`."""
+    pts, rsid = kernels.msm_gather(pm, sid, neg, perm, half, pairs=True)
+    rs, rp = _compact_rejects(rsid, half)
+    rej = kernels.msm_gather(pm, rs, neg, perm, half, src=rp * 2)
+    return sid[:, 1::2], pts, (rs, rej)
+
+
 def _tree_level(sid, pts, half: int):
-    """One level of the halving tree: adjacent lanes merge with ONE
+    """One later level of the halving tree: adjacent lanes merge with ONE
     addition where they share a bucket; the left lane of each
     bucket-boundary pair (at most one per bucket, so ids are distinct) is
     compacted by a key sort into `half` reject slots.  Returns (sid, pts)
     at half the lanes and the level's rejects (rs, x/y/z)."""
     sent = half + 1
-    m = pts[0].shape[-1] // 2
     left = tuple(t[..., 0::2] for t in pts)
     right = tuple(t[..., 1::2] for t in pts)
     sl, sr = sid[:, 0::2], sid[:, 1::2]
     same = sl == sr
     pts = g1_ops.pselect(same, g1_ops.padd(left, right), right)
-    rsid = torch.where(same, sent, sl)
+    rs, rp = _compact_rejects(torch.where(same, sent, sl), half)
+    m = left[0].shape[-1]
     if m < half:
-        rsid = F.pad(rsid, (0, half - m), value=sent)
         left = tuple(F.pad(t, (0, half - m)) for t in left)
-        m = half
-    # compact AND sort ascending (the dense scatter binary-searches)
-    pos_bits = max(m - 1, 1).bit_length()
-    riota = torch.arange(m, dtype=torch.int32, device=sid.device)
-    rpacked = torch.sort((rsid << pos_bits) | riota, dim=-1).values[:, :half]
-    rs = rpacked >> pos_bits
-    rp = (rpacked & ((1 << pos_bits) - 1)).to(torch.int64)
-    rej = tuple(_gather_lanes(t, rp) for t in left)
-    return sr, tuple(pts), (rs, _park_identity(rs >= sent, rej))
+    rej = tuple(_gather_lanes(t, rp.to(torch.int64)) for t in left)
+    return sr, tuple(pts), (rs, g1_ops.park_identity(rs >= sent, rej))
 
 
 def _msm_ptree_pipeline(c: int, pm, pinf, limbs, stage=_span):
     """Same contract as `_msm_pipeline`, halving-tree bucket accumulation:
-    `_tree_level` while the lanes outnumber the buckets, the residual
-    through the prefix-scan tail, and each level's rejects scattered into
-    dense slots and folded in with one addition per level."""
+    the first level from the sort (`_first_level`), `_tree_level` while the
+    lanes outnumber the buckets, the residual through the prefix-scan tail,
+    and each level's rejects scattered into dense slots and folded in with
+    one addition per level."""
     half = 1 << (c - 1)
-    sid, *pts = _sorted_points(c, pm, pinf, limbs, stage)
-    n = pts[0].shape[-1]
+    sid, neg, perm = _sorted_digits(c, pinf, limbs, stage)
+    n = sid.shape[-1]
     two_adic = (n & -n).bit_length() - 1
     levels = min(max(0, (n // half).bit_length() - 1), two_adic)
+    if not levels:
+        with stage("gather"):
+            pts = kernels.msm_gather(pm, sid, neg, perm, half)
     parts = []
     for level in range(levels):
         with stage(f"tree level {level + 1}"):
-            sid, pts, rejects = _tree_level(sid, pts, half)
+            if level:
+                sid, pts, rejects = _tree_level(sid, pts, half)
+            else:
+                sid, pts, rejects = _first_level(pm, sid, neg, perm, half)
         parts.append(rejects)
     with stage("scan tail"):
         buckets = _bucket_sums_dense(sid, *pts, half)

@@ -8,9 +8,11 @@ synchronises the card on both sides and reads the host clock.  It prints
 the time of each stage, averaged over warm repetitions:
 
   scalar conversion (host ints -> limb tensor on the card), signed digits,
-  sort (packed keys, one sort per digit row), gather (the points by that
-  permutation, y negated by the sign, dead lanes parked), each level of the
-  halving tree (one addition, the rejects' sort and gather), the scan tail
+  sort (packed keys, one sort per digit row), each level of the halving
+  tree (the first: the `msm_gather` kernel gathers the points by that
+  permutation, y negated by the sign, dead lanes parked, and adds the
+  pairs that share a bucket, then the rejects' sort and gather; the
+  others: one addition, the rejects' sort and gather), the scan tail
   (prefix scan of the residual and the bucket differences), the folds of
   each level's rejects into the buckets, the weighted fold (suffix scan and
   lane sum), the `window_fold` kernel, and the host decode.
