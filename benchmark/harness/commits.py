@@ -6,8 +6,12 @@ the circuit's domain (`PublicParameters.trim`), and makes `sets` sets of
 `polys_per_call` device-resident Montgomery coefficient tensors, [8, L]
 int32 with L = 2^domain_log2 + `extra_coefficients` (the blinded wire
 polynomials of round 1), from a torch.Generator seeded on the device.
-Each item commits the next set in turn.  After the window the reference
-works out every set's commitments as [p(tau)] g and compares every call's.
+Each item commits the next set in turn.  The end-to-end metric is the
+card's busy time over the whole window, from the window's card-only
+trace, per call finished in it (`commit_device_ms`); the calls' rate on
+the harness's clock, which the host paces, is the per-layer
+`commit_rate`.  After the window the reference works out every set's
+commitments as [p(tau)] g and compares every call's.
 """
 
 from __future__ import annotations
@@ -84,11 +88,16 @@ class Loop:
                 rec["out"] = self.key.commit_many_mont(list(self.pool[s]))
             except Exception as err:  # the answer never came: counted failed
                 rec["error"] = f"{type(err).__name__}: {err}"
+        rec["points"] = len(rec["out"]) * self.length
         return rec
 
     def end_to_end(self, records, window_s: float, window_dev=None) -> dict:
-        points = sum(len(r["out"]) for r in records) * self.length
-        return {"commit_points_per_s": points / window_s}
+        """`commit_device_ms`: the card's busy time over the window, from
+        the window's own trace (`window_dev`), per call finished in it."""
+        done = sum(r["error"] is None for r in records)
+        return {"commit_device_ms": (1e3 * window_dev.busy_s / done
+                                     if window_dev is not None and done
+                                     else None)}
 
     def release(self) -> None:
         self.host_pool = self.pool.cpu().numpy()

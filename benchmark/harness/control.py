@@ -5,7 +5,8 @@
 * `openings2-h17.commit`: the reference itself in the program's place,
   its scalars cut to 224 bits (each coefficient's top 32-bit word
   dropped: a short-scalar MSM), against the exact reference;
-* `opening-h17.batch`: the program's proofs from a prover compiled under
+* a proof cell (`opening-h17.batch`, or any whose loop subclasses
+  `proofs.Loop`): the program's proofs from a prover compiled under
   another setup (a stale circuit cache), against the verifier key of the
   run's own setup.
 
@@ -19,7 +20,7 @@ import json
 import sys
 import time
 
-from . import commits, core, proofs
+from . import commits, core
 
 
 class _Encoded:
@@ -45,7 +46,8 @@ def commit_control(config, traffic, seed: int, device) -> dict:
 
 
 def proof_control(config, traffic, seed: int, device, n_proofs: int) -> dict:
-    loop = proofs.Loop(config, dict(traffic, warmup=0), seed, device)
+    loop = core.loop_class(traffic)(config, dict(traffic, warmup=0), seed,
+                                    device)
     loop.srs_seed = seed + 1
     loop.setup({})
     records = [loop.item() for _ in range(n_proofs)]

@@ -5,6 +5,22 @@
 A cell of `BENCHMARK.json` names a configuration (its file under
 `benchmark/configs/`) and a traffic mix (`benchmark/traffic/<mix>.json`),
 whose `loop` names the closed loop that drives it (`harness/<loop>.py`).
+That module defines `Loop`, built as `Loop(config, traffic, seed, device)`,
+with the methods a run calls in this order:
+
+* `setup(parts)`: everything before the window, each part's seconds
+  written into the dict `parts`;
+* `item()`: one item of the window, a dict whose `error` is None unless
+  the answer never came;
+* `end_to_end(records, window_s, window_dev)`: the cell's end-to-end
+  metrics but `setup_s`, from the window's records (`window_dev`, the
+  card-only trace of the window, where one of them is read from the
+  device);
+* `release()`: the program's state freed;
+* `check(records)`: every record judged by the plain reference, as
+  {name: (number, limit)}.
+
+A loop for another circuit of a proving service subclasses `proofs.Loop`.
 A run sets the cell up (timed as `setup_s`, its parts printed on an
 earlier line), measures for `--seconds` seconds, and with `--trace 1`
 first profiles `trace_items` items of the same loop and reads the cell's
@@ -96,6 +112,11 @@ def load_reader(name: str):
     return module.read
 
 
+def loop_class(traffic: dict):
+    """The `Loop` of the traffic's loop module, `harness/<loop>.py`."""
+    return importlib.import_module(f"benchmark.harness.{traffic['loop']}").Loop
+
+
 def card_line(torch, chips: int) -> dict:
     """The card's name and power limit (nvidia-smi), for every number."""
     out = {"kind": torch.cuda.get_device_name(0), "count": chips}
@@ -147,12 +168,12 @@ def run(argv, t_start: float, device: str = "cuda", check_card=True) -> int:
         return 3
     card = (card_line(torch, cell["chips"]) if check_card
             else {"kind": "cpu", "count": 1, "power_limit": "none"})
-    loop_mod = importlib.import_module(f"benchmark.harness.{traffic['loop']}")
+    loop_cls = loop_class(traffic)
     from zkvm_tpu_torch.ops import kernels
     from zkvm_tpu_torch.utils import metrics
 
     parts = {"imports": time.monotonic() - t_start}
-    loop = loop_mod.Loop(config, traffic, args.seed, device)
+    loop = loop_cls(config, traffic, args.seed, device)
     loop.setup(parts)
     on_device = not args.trace and any(
         m["source"] == "device_trace"

@@ -1,18 +1,24 @@
-"""The closed loop of the batch membership service: one proof at a time.
+"""The closed loop of a proving service: one proof at a time.
 
 Set-up draws the deployment's SRS from the seed, compiles the circuit as
 the service does (`Compiler.compile_with_circuit(pp, label, circuit)`),
-makes the input file of a pool of distinct leaves with the benchmark's
-frozen generator, parses it with the service's own format, and proves
-`warmup` leaves.  Each item of the window then runs the service's
-per-leaf steps (`service/batch.py`): parse the opening, check its root
-and verify it natively, prove, verify the proof, and write the proof's
-and the public inputs' rkyv bytes to a file.  A proof takes `openings`
-leaves of the pool (one: the service's `OpeningCircuit`).  A leaf is
-never proven twice; a run that runs out of leaves fails.
+makes a pool of inputs, and proves `warmup` of them.  Each item of the
+window then takes the next input, runs the service's steps before the
+prover, proves, verifies the proof, and writes the proof's and the public
+inputs' rkyv bytes to a file.  An input is never proven twice; a run that
+runs out of inputs fails.  After the window, the reference rebuilds the
+verifier key from the circuit's layout and the seed's trapdoor and checks
+every proof file written.
 
-After the window, the reference rebuilds the verifier key from the
-circuit and the seed's trapdoor and checks every proof file written.
+What is the circuit's own sits in five methods, which a loop for another
+circuit (`harness/<loop>.py`, `class Loop(proofs.Loop)`) overrides:
+`default_circuit`, `make_inputs`, `circuit`, `layout` and
+`public_inputs`.  This class's are the batch membership service's
+(`service/batch.py`): a pool of distinct leaves made with the benchmark's
+frozen generator and parsed with the service's own format; a proof takes
+`openings` leaves of it (one: the service's `OpeningCircuit`), parses each
+opening, checks its root and verifies it natively; its public inputs are
+the tree's root.
 """
 
 from __future__ import annotations
@@ -49,10 +55,14 @@ def leaf_rng_seed(seed: int, item: int) -> int:
     return (seed * 1_000_003 + item) & M64
 
 
+def opening_shape(config: dict) -> tuple[int, int]:
+    """(tree height, openings a proof) of an opening configuration."""
+    return config["tree"]["height"], config["openings"]
+
+
 class Loop:
     def __init__(self, config: dict, traffic: dict, seed: int, device):
-        self.height = config["tree"]["height"]
-        self.openings = config["openings"]
+        self.config = config
         self.label = config["label"].encode()
         self.srs_log2 = config["srs_log2"]
         self.traffic = traffic
@@ -60,14 +70,55 @@ class Loop:
         self.srs_seed = seed  # the control compiles under another setup
         self.device = device
         self.count = 0       # proofs started, warm-up included
+        self.pool = 0        # proofs the inputs hold
         self.out_dir = None
 
-    # -- set-up -------------------------------------------------------------
-    def circuit_of(self, parts):
-        if self.openings == 1:
+    # -- the circuit: what a loop for another circuit overrides --------------
+    def default_circuit(self):
+        """The circuit that set-up compiles (its witness values unused)."""
+        height, openings = opening_shape(self.config)
+        if openings == 1:
+            return OpeningCircuit.default_for_height(height)
+        return MultiOpeningCircuit.default_for(height, openings)
+
+    def make_inputs(self) -> int:
+        """Make the pool of inputs; returns the number of proofs it holds."""
+        height, openings = opening_shape(self.config)
+        n_leaves = openings * (self.traffic["proofs"]
+                               + self.traffic["warmup"])
+        self.ref_root, _, _, blob = ref_merkle.make_pool(
+            self.seed, height, n_leaves)
+        data = MultipleLeavesData.from_rkyv_bytes(blob)
+        self.root = Fr.from_bytes(data.root_hash)
+        self.leaves = data.leaves_info
+        return len(self.leaves) // openings
+
+    def circuit(self, i: int):
+        """Proof i's circuit, after the service's steps before the prover:
+        each opening parsed, its root checked, verified natively."""
+        height, openings = opening_shape(self.config)
+        parts = []
+        for info in self.leaves[i * openings:(i + 1) * openings]:
+            leaf = Item(Fr.from_bytes(info.leaf_hash), None)
+            opening = poseidon_opening_from_slice(info.proof_bytes, height)
+            if opening.root.hash != self.root or not opening.verify(leaf):
+                raise ValueError(f"leaf {info.position}: its opening is "
+                                 f"refused")
+            parts.append((opening, leaf))
+        if openings == 1:
             return OpeningCircuit(*parts[0])
         return MultiOpeningCircuit(parts)
 
+    def layout(self):
+        """The reference's layout of the compiled circuit."""
+        return ref_circuit.opening_circuit(*opening_shape(self.config))
+
+    def public_inputs(self, i: int, layout) -> list[int]:
+        """The public inputs the reference expects of proof i, one a public
+        gate of `layout`, in order."""
+        return [self.ref_root] * len(layout.public)
+
+    # -- set-up -------------------------------------------------------------
     def setup(self, parts: dict) -> None:
         t = time.monotonic()
         if self.device != "cpu":
@@ -81,21 +132,12 @@ class Loop:
                                     StdRng(self.srs_seed & M64), self.device)
         parts["srs"] = time.monotonic() - t
         t = time.monotonic()
-        default = (OpeningCircuit.default_for_height(self.height)
-                   if self.openings == 1 else
-                   MultiOpeningCircuit.default_for(self.height, self.openings))
         self.prover, self.verifier = Compiler.compile_with_circuit(
-            pp, self.label, default)
+            pp, self.label, self.default_circuit())
         del pp
         parts["compile"] = time.monotonic() - t
         t = time.monotonic()
-        n_leaves = self.openings * (self.traffic["proofs"]
-                                    + self.traffic["warmup"])
-        self.ref_root, _, _, blob = ref_merkle.make_pool(
-            self.seed, self.height, n_leaves)
-        data = MultipleLeavesData.from_rkyv_bytes(blob)
-        self.root = Fr.from_bytes(data.root_hash)
-        self.leaves = data.leaves_info
+        self.pool = self.make_inputs()
         self.out_dir = Path(tempfile.mkdtemp(prefix="zkvm-bench-proofs-"))
         parts["inputs"] = time.monotonic() - t
         t = time.monotonic()
@@ -108,28 +150,17 @@ class Loop:
     # -- one item of the window ---------------------------------------------
     def item(self) -> dict:
         i = self.count
-        if (i + 1) * self.openings > len(self.leaves):
-            raise RuntimeError(f"the pool of {len(self.leaves)} leaves is "
-                               f"used up after {i} proofs")
+        if i >= self.pool:
+            raise RuntimeError(f"the pool of {self.pool} proofs is used up "
+                               f"after {i} proofs")
         self.count += 1
-        infos = self.leaves[i * self.openings:(i + 1) * self.openings]
         path = self.out_dir / f"plonk_proof_{i}.bin"
         rec = {"index": i, "path": path, "error": None}
         t0 = t1 = t2 = time.perf_counter()
         with record_function("bench/leaf"):
             try:
                 with record_function("bench/open"):
-                    parts = []
-                    for info in infos:
-                        leaf = Item(Fr.from_bytes(info.leaf_hash), None)
-                        opening = poseidon_opening_from_slice(
-                            info.proof_bytes, self.height)
-                        if (opening.root.hash != self.root
-                                or not opening.verify(leaf)):
-                            raise ValueError(f"leaf {info.position}: its "
-                                             f"opening is refused")
-                        parts.append((opening, leaf))
-                    circuit = self.circuit_of(parts)
+                    circuit = self.circuit(i)
                 with record_function("bench/prove"):
                     t1 = time.perf_counter()
                     proof, public_inputs = self.prover.prove(
@@ -164,13 +195,12 @@ class Loop:
 
     def check(self, records) -> dict:
         """Every proof of the run's window judged by the reference:
-        rejected (unreadable, a public input other than the root, or a
-        failing verification), missing (no file), repeated (the bytes of an
-        earlier proof)."""
+        rejected (unreadable, public inputs other than `public_inputs`, or
+        a failing verification), missing (no file), repeated (the bytes of
+        an earlier proof)."""
         tau, g = ref_srs.trapdoor(self.seed & M64)
-        layout = ref_circuit.opening_circuit(self.height, self.openings)
+        layout = self.layout()
         vk = ref_circuit.verifier_key(layout, tau, g)
-        public = dict.fromkeys(layout.public, self.ref_root)
         rejected = missing = repeated = 0
         seen = set()
         for rec in records:
@@ -185,12 +215,14 @@ class Loop:
             if proof in seen:
                 repeated += 1
             seen.add(proof)
-            want = b"".join(self.ref_root.to_bytes(32, "little")
-                            for _ in layout.public)
+            values = self.public_inputs(rec["index"], layout)
+            want = b"".join(v.to_bytes(32, "little") for v in values)
             try:
                 if pis != want:
-                    raise ref_plonk.Rejected("public inputs are not the root")
-                ref_plonk.verify(proof, public, vk, self.label, tau, g)
+                    raise ref_plonk.Rejected("public inputs are not the "
+                                             "expected ones")
+                ref_plonk.verify(proof, dict(zip(layout.public, values)), vk,
+                                 self.label, tau, g)
             except ref_plonk.Rejected as err:
                 rejected += 1
                 print(f"proof {rec['index']} rejected: {err}", flush=True)

@@ -109,10 +109,16 @@ def test_each_per_layer_metric_has_its_reader(metric):
     assert callable(load_reader(metric))
 
 
+# what a run calls of a cell's loop (`harness/core.py`)
+PROTOCOL = ("setup", "item", "end_to_end", "release", "check")
+
+
 def test_cells_are_found_by_name():
     from benchmark.harness import core
 
     for w in BENCH["workloads"]:
         cell, config, traffic = core.find_cell(BENCH, w["name"])
         assert cell is not None and config["name"] == w["config"]
-        assert traffic["loop"] in ("proofs", "commits")
+        loop = core.loop_class(traffic)
+        for method in PROTOCOL:
+            assert callable(getattr(loop, method, None)), (w["name"], method)

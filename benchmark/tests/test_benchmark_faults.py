@@ -150,7 +150,9 @@ def test_proof_faults_fail_the_run(run_cell, monkeypatch, kind, number):
 def test_sound_commit_run_is_correct(run_cell):
     r = run_cell("openings2-h17.commit")
     assert r["correct"] and r["attempted"] == ITEMS and r["failed"] == 0
-    assert set(r["metrics"]) == {"commit_points_per_s", "setup_s"}
+    assert set(r["metrics"]) == {"commit_device_ms", "setup_s"}
+    assert r["metrics"]["commit_device_ms"]["value"] == pytest.approx(
+        1e3 * BUSY_PER_ITEM_S)
 
 
 @pytest.mark.parametrize("kind, number", [("unchanged", "commits_wrong"),

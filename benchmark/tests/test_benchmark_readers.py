@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from benchmark.harness import roofline, trace
+from benchmark.harness.commits import Loop as CommitLoop
 from benchmark.harness.core import Window, load_reader
 from benchmark.harness.proofs import Loop as ProofLoop
 
@@ -38,6 +39,22 @@ def test_proof_device_ms_is_the_windows_busy_time_per_proof():
     got = loop.end_to_end(records, 40.0, dev)
     assert got == {"proof_device_ms": pytest.approx(1e3 * 2.37 / 79)}
     assert loop.end_to_end(records, 40.0, None) == {"proof_device_ms": None}
+
+
+def test_commit_device_ms_and_commit_rate_are_over_the_window():
+    loop = CommitLoop.__new__(CommitLoop)
+    length = 65_538
+    records = [{"set": i % 8, "out": [0] * 4, "points": 4 * length,
+                "error": None} for i in range(500)]
+    records[7].update(out=[], points=0, error="boom")  # never answered
+    dev = trace.DeviceWindow(busy_s=4.6, missing_launches=0)
+    got = loop.end_to_end(records, 50.0, dev)
+    assert got == {"commit_device_ms": pytest.approx(1e3 * 4.6 / 499)}
+    assert loop.end_to_end(records, 50.0, None) == {"commit_device_ms": None}
+    w = Window(records, 50.0, {}, None)
+    assert load_reader("commit_rate")(w) == pytest.approx(
+        499 * 4 * length / 50.0)
+    assert load_reader("commit_rate")(Window([], 50.0, {}, None)) is None
 
 
 def _synthetic_events():
