@@ -1,7 +1,9 @@
 """The program's spans (`zkvm_tpu_torch/utils/metrics.py`) where the
 prover's fixture proof does not reach them: a garbage collection as the
 span `prove/gc`, the in-circuit Poseidon permutation as
-`prove/poseidon_gadget`, and the rule that a span is a profiler range only
+`prove/poseidon_gadget`, a JubJub scalar multiplication as
+`prove/jubjub_fixed_base` or `prove/jubjub_variable_base` (none in the
+opening circuit), and the rule that a span is a profiler range only
 inside the program's own trace window (`padded_profile`)."""
 
 import gc
@@ -13,6 +15,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from zkvm_tpu_torch.curves.g1 import G1Affine
+from zkvm_tpu_torch.curves.jubjub import JubjubAffine
+from zkvm_tpu_torch.fields import JubjubFr
 from zkvm_tpu_torch.hashes.gadget import GadgetPermutation
 from zkvm_tpu_torch.ops import kernels, msm
 from zkvm_tpu_torch.ops import limb_field as lf
@@ -143,3 +147,36 @@ def test_the_window_closes_its_ranges_on_an_exception():
         with metrics.GLOBAL.span("prove/preamble"):
             pass
     assert _program_ranges(after) == []
+
+
+JUBJUB_SPANS = ("prove/jubjub_fixed_base", "prove/jubjub_variable_base")
+
+
+def _jubjub_spans(build):
+    """The JubJub multiplication spans (every nesting) that one synthesis
+    by `build(composer)` opens: (fixed-base, variable-base)."""
+    def counts():
+        return [sum(c for k, c in metrics.GLOBAL.counts.items()
+                    if k == n or k.endswith("/" + n)) for n in JUBJUB_SPANS]
+
+    before = counts()
+    build(Composer.initialized())
+    return tuple(b - a for a, b in zip(before, counts()))
+
+
+def test_a_jubjub_span_opens_once_a_multiplication():
+    def build(c):
+        s = c.append_witness(JubjubFr(123_456_789))
+        p = c.append_point(JubjubAffine.generator())
+        for _ in range(3):
+            c.component_mul_generator(s, JubjubAffine.generator_nums())
+        with metrics.GLOBAL.span("prove/witness_synthesis"):
+            for _ in range(2):
+                c.component_mul_point(s, p)
+        c.component_add_point(p, p)
+    assert _jubjub_spans(build) == (3, 2)
+
+
+def test_the_opening_circuit_opens_no_jubjub_span():
+    circuit = OpeningCircuit.default_for_height(2)
+    assert _jubjub_spans(circuit.circuit) == (0, 0)

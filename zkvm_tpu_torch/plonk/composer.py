@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from ..curves.jubjub import JubjubAffine, JubjubExtended
 from ..fields import Fr, JubjubFr
+from ..utils import metrics
 from . import errors
 from .constraint_system import (Constraint, Gate, Selector, Witness,
                                 WiredWitness, WitnessPoint)
@@ -373,18 +374,24 @@ class Composer:
     def component_mul_point(self, jubjub: Witness,
                             point: WitnessPoint) -> WitnessPoint:
         """Variable-base scalar mul: 252-bit decompose + double-and-add
-        (composer.rs:762-779)."""
-        scalar_bits = self.component_decomposition(jubjub, 252)
-        result = self.IDENTITY
-        for bit in reversed(scalar_bits):
-            result = self.component_add_point(result, result)
-            to_add = self.component_select_identity(bit, point)
-            result = self.component_add_point(result, to_add)
+        (composer.rs:762-779); the span `prove/jubjub_variable_base`."""
+        with metrics.GLOBAL.span("prove/jubjub_variable_base"):
+            scalar_bits = self.component_decomposition(jubjub, 252)
+            result = self.IDENTITY
+            for bit in reversed(scalar_bits):
+                result = self.component_add_point(result, result)
+                to_add = self.component_select_identity(bit, point)
+                result = self.component_add_point(result, to_add)
         return result
 
     def component_mul_generator(self, jubjub: Witness,
                                 generator) -> WitnessPoint:
-        """Fixed-base scalar mul: 256 WNAF-2 gates (composer.rs:315-443)."""
+        """Fixed-base scalar mul: 256 WNAF-2 gates (composer.rs:315-443);
+        the span `prove/jubjub_fixed_base`."""
+        with metrics.GLOBAL.span("prove/jubjub_fixed_base"):
+            return self._mul_generator(jubjub, generator)
+
+    def _mul_generator(self, jubjub: Witness, generator) -> WitnessPoint:
         if isinstance(generator, JubjubAffine):
             generator = generator.to_extended()
         bits = 256
