@@ -11,7 +11,7 @@ Phases (any failure exits non-zero; no phase catches its own error):
 
   1. device: the card's name and power limit (nvidia-smi) and versions;
      refuses to run without CUDA;
-  2. build: compiles the twelve CUDA kernels from zkvm_tpu_torch/csrc/;
+  2. build: compiles the thirteen CUDA kernels from zkvm_tpu_torch/csrc/;
   3. kernel parity: each kernel against its plain PyTorch version, bit for
      bit -- on edge-case batches against the plain version on a CPU copy,
      and at the slice's shapes against the plain version on the card, with
@@ -58,6 +58,14 @@ Phases (any failure exits non-zero; no phase catches its own error):
      split and all dead: merge mode, the rejects' gather and the gather of
      every lane against its plain version on the card (the composition it
      replaced), each timed beside it;
+     msm_digits (the integer work around the MSM's bucket sort: scalar
+     limbs to signed digits and sort keys, the sorted keys to bucket ids,
+     signs and point indices; its registers and spills as ptxas gives
+     them) at the cells' commit shapes, [4, 33,792] at c = 10, [4, 66,560]
+     and [4, 132,096] at c = 11, on random scalars with the edge values, a
+     zero tail and 1% of the points at infinity: pack mode, then unpack
+     mode on the sorted keys, against its plain version on the card (the
+     composition it replaced), each timed beside it and its byte bound;
      padd_ilp (two threads a point on the lazily reduced arithmetic)
      against padd and the plain version at [24, 12, 32768], on p + p and
      on every second lane read in place, and timed in turns with padd;
@@ -184,9 +192,9 @@ Phases (any failure exits non-zero; no phase catches its own error):
      (compile and 32 proves) and the headline (`bench`), reported apart;
      ntt_stages must be launched on the polynomial path, the flagship
      prove, the mesh and the service run, quotient on the flagship prove,
-     the mesh and the service run, msm_gather on every region that
-     commits (the commitment and polynomial paths, the flagship prove,
-     the mesh, the service run and the headline).
+     the mesh and the service run, msm_gather and msm_digits on every
+     region that commits (the commitment and polynomial paths, the
+     flagship prove, the mesh, the service run and the headline).
 
 The last lines are the kernels' JSON record, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.  JAX and the JAX package are blocked for the
@@ -288,7 +296,7 @@ WORST_COLUMN = 32 * 256 * 255 * 255
 # the field additions that jit fuses into every program: add / sub / neg of
 # limb_field, and the quotient round's two jitted programs,
 # quotient_numerator and pointwise_divide, which have no Pallas site of
-# their own); msm_gather replaces no TPU kernel
+# their own); msm_gather and msm_digits replace no TPU kernel
 KERNELS = {
     "mont_mul": ("zkvm_tpu_torch/csrc/mont_mul.cu",
                  "zkvm_tpu/ops/pallas_field.py:232"),
@@ -315,12 +323,16 @@ KERNELS = {
     "msm_gather": ("zkvm_tpu_torch/csrc/msm_gather.cu",
                    "none: a kernel of the port alone (on the TPU, XLA "
                    "operations of zkvm_tpu/ops/msm.py around padd_pallas_2l)"),
+    "msm_digits": ("zkvm_tpu_torch/csrc/msm_digits.cu",
+                   "none: a kernel of the port alone (on the TPU, XLA "
+                   "operations of zkvm_tpu/ops/msm.py around its sort)"),
 }
 # how the port's CUDA kernels are named in a profile
 OUR_KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "padd_kernel",
                "padd_ilp_kernel", "window_fold_kernel", "ntt_pass_kernel",
                "fold_kernel", "hades_kernel", "hades_coop_kernel",
-               "field_addsub_kernel", "quotient_kernel", "msm_gather_kernel")
+               "field_addsub_kernel", "quotient_kernel", "msm_gather_kernel",
+               "msm_digits_kernel")
 REGIONS = ("commit_path", "poly_path", "crosscheck", "merkle_path",
            "padd_comparison", "prove_path", "mesh", "service", "bench")
 
@@ -639,6 +651,7 @@ def phase_parity(rng, dev) -> dict:
     # its own generator: the draws of the later phases stay as they were
     phase_parity_quotient(np.random.default_rng(SEED + 5), dev, rec)
     phase_parity_msm_gather(np.random.default_rng(SEED + 6), dev, rec)
+    phase_parity_msm_digits(np.random.default_rng(SEED + 7), dev, rec)
 
     card = card_line()
     for name, r in rec.items():
@@ -1379,6 +1392,85 @@ def phase_parity_msm_gather(rng, dev, rec) -> None:
         **{f"{k}_2": v for k, v in second.items() if k != "max_abs_err"})
 
 
+# the cells' commit shapes: (c, sets, N) of a proof's commits at 2^15, of a
+# 2^16 commit and of a proof's commits at 2^17
+MSM_DIGITS_SHAPES = ((10, 4, 33792), (11, 4, 66560), (11, 4, 132096))
+
+
+def msm_digits_operands(rng, c: int, sets: int, n: int, dev):
+    """Canonical scalar limbs [sets, 8, n] (random below r; in lanes 0-2 of
+    every set 0, r - 1 and a run of ones up to the top window, whose carry
+    sweeps through every window; the last set's tail zero, as padding) and
+    the points' infinity flags (1%).  Returns (limbs, pinf)."""
+    a = rand_field(FR, (sets, 8, n), rng)
+    top = c * (kernels.digit_windows(c) - 1)
+    for lane, v in enumerate((0, Q - 1, min(1 << top, 1 << 254) - 1)):
+        a[:, :, lane] = lf.int_to_limbs(v, 8)[None]
+    a[sets - 1, :, n - n // 7:] = 0
+    pinf = torch.as_tensor(rng.random(n) < 0.01, device=dev)
+    return lf.u32_to_tensor(a, dev), pinf
+
+
+def phase_parity_msm_digits(rng, dev, rec) -> None:
+    """msm_digits against its plain version (the composition it replaced:
+    the signed digits window by window in int64, the key build before the
+    sort, the unpack after it) on the card, bit for bit, at
+    MSM_DIGITS_SHAPES: pack mode, then unpack mode on the sorted keys; each
+    timed beside its plain version and its byte bound (pack mode reads 32
+    bytes a lane and writes 4 a key, unpack mode reads 4 and writes 13 a
+    key).  The row's own time and bound are the 2^16 commit's, both modes
+    together.  It prints what ptxas said of both modes."""
+    card = card_line()
+    usage = (f"pack mode: {ptxas_usage('PackArgs')}; unpack mode: "
+             f"{ptxas_usage('UnpackArgs')}" if kernels.BUILD_LOG
+             else "not in this process (the library was built by another)")
+    log(f"msm_digits, ptxas -v: {usage}")
+    rows = []
+    for c, sets, n in MSM_DIGITS_SHAPES:
+        limbs, pinf = msm_digits_operands(rng, c, sets, n, dev)
+        before = kernels.LAUNCHES["msm_digits"]
+        keys = kernels.msm_digits(limbs, pinf, c)
+        srt = torch.sort(keys, dim=-1).values
+        got = kernels.msm_digits(srt, unpack=True)
+        if kernels.LAUNCHES["msm_digits"] != before + 2:
+            raise AssertionError("msm_digits did not launch twice")
+        err = max(max_abs_err(keys, kernels.msm_digits_plain(limbs, pinf, c)),
+                  max_abs_err(got, kernels.msm_digits_plain(srt,
+                                                            unpack=True)))
+        del got
+        b = keys.shape[0]
+        pack = bound(sets * 8 * n * 4 + n + b * n * 4, 0)
+        unpack = bound(b * n * (4 + 13), 0)
+        pack_ms = cuda_ms(lambda: kernels.msm_digits(limbs, pinf, c), 20)
+        unpack_ms = cuda_ms(lambda: kernels.msm_digits(srt, unpack=True), 20)
+        plain_pack_ms = cuda_ms(
+            lambda: kernels.msm_digits_plain(limbs, pinf, c), 3)
+        plain_unpack_ms = cuda_ms(
+            lambda: kernels.msm_digits_plain(srt, unpack=True), 3)
+        sort_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 5)
+        shape = f"[{sets}, {n}], c = {c}"
+        log(f"msm_digits at {shape} ({b} key rows): max abs err {err}; pack "
+            f"{pack_ms:.4f} ms (plain {plain_pack_ms:.4f}, bound "
+            f"{pack['bound_ms']:.4f}, {pack['bound_ms'] / pack_ms:.3f} of "
+            f"it), unpack {unpack_ms:.4f} ms (plain {plain_unpack_ms:.4f}, "
+            f"bound {unpack['bound_ms']:.4f}, "
+            f"{unpack['bound_ms'] / unpack_ms:.3f} of it); the sort between "
+            f"them {sort_ms:.4f} ms; {card}")
+        rows.append(dict(shape=shape, max_abs_err=err, pack_ms=pack_ms,
+                         unpack_ms=unpack_ms, plain_pack_ms=plain_pack_ms,
+                         plain_unpack_ms=plain_unpack_ms, sort_ms=sort_ms,
+                         pack_bound_ms=pack["bound_ms"],
+                         unpack_bound_ms=unpack["bound_ms"]))
+        del limbs, pinf, keys, srt
+    main = rows[1]
+    rec["msm_digits"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows), shape=main["shape"],
+        ms=main["pack_ms"] + main["unpack_ms"],
+        plain_ms=main["plain_pack_ms"] + main["plain_unpack_ms"],
+        bound_ms=main["pack_bound_ms"] + main["unpack_bound_ms"],
+        bound_by="bytes", ptxas=usage, shapes=rows)
+
+
 def hades_bounds(lanes: int) -> dict:
     """The kernel's bound (its own arithmetic) and the earlier one (2000
     products a permutation), same bytes."""
@@ -1580,7 +1672,8 @@ def phase_slice(rng, dev) -> dict:
 
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
                                 "window_fold", "field_addsub",
-                                "msm_gather"), "commitment path")
+                                "msm_gather", "msm_digits"),
+                     "commitment path")
     out["launches"] = launches
     out["commit_key"] = ck
     out["opening_key"] = pp.opening_key
@@ -1896,7 +1989,7 @@ def phase_poly(rng, dev, ck, ok) -> dict:
     log("commit: the first blinded commitment equals the native host MSM")
 
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "ntt_stages", "msm_gather"),
+                                "ntt_stages", "msm_gather", "msm_digits"),
                      "polynomial path")
     require_launched(crosscheck, ("mont_mul", "ntt_stages", "carry_fold",
                                   "fold"), "whole-transform cross-checks")
@@ -2415,7 +2508,8 @@ def phase_prove_flagship(dev) -> dict:
         f"{busy:.3f} ms over the mean warm wall without the profiler)")
     require_launched(launches, ("mont_mul", "padd", "window_fold",
                                 "ntt_stages", "field_addsub", "quotient",
-                                "msm_gather"), "flagship prove")
+                                "msm_gather", "msm_digits"),
+                     "flagship prove")
     out["launches"] = launches
 
     with staged_operands({}) as seen, quotient_operands_checked({}) as qs:
@@ -2684,7 +2778,7 @@ def phase_mesh(rng, dev, fl) -> dict:
     require_launched(launches, ("padd", "window_fold", "mont_mul",
                                 "ntt_stages", "field_addsub",
                                 "hades_permute", "quotient",
-                                "msm_gather"), "mesh path")
+                                "msm_gather", "msm_digits"), "mesh path")
     out["launches"] = launches
     return out
 
@@ -2838,7 +2932,8 @@ def phase_service(dev, root: Path) -> dict:
         f"proves): {launches}")
     require_launched(launches, ("mont_mul", "mont_pow", "padd",
                                 "window_fold", "ntt_stages", "field_addsub",
-                                "quotient", "msm_gather"), "service run")
+                                "quotient", "msm_gather", "msm_digits"),
+                     "service run")
     shutil.rmtree(work)
     return {"launches": launches}
 
@@ -2895,7 +2990,7 @@ def phase_entry(dev, root: Path) -> dict:
         f"equals the host MSM and the 2^16 MSM the native host MSM")
     log(f"launches of the headline (bench region): {launches}")
     require_launched(launches, ("mont_mul", "padd", "window_fold",
-                                "msm_gather"), "headline")
+                                "msm_gather", "msm_digits"), "headline")
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3138,10 +3233,11 @@ def main() -> int:
     en = phase_entry(dev, Path(__file__).resolve().parent)
 
     # launches: the sum of the counted regions, each also given apart; no
-    # single PyTorch call computes any of the twelve functions (a Montgomery
-    # product or power on limbs, a curve addition, a permutation over Fr, a
-    # modular addition on limbs, the quotient's field expression, a signed
-    # gather with a curve addition), so there is no library time
+    # single PyTorch call computes any of the thirteen functions (a
+    # Montgomery product or power on limbs, a curve addition, a permutation
+    # over Fr, a modular addition on limbs, the quotient's field expression,
+    # a signed gather with a curve addition, a signed-digit recoding into
+    # sort keys), so there is no library time
     regions = dict(zip(REGIONS, (sl["launches"], po["launches"],
                                  po["crosscheck"], me["launches"],
                                  pc["launches"], fl["launches"],

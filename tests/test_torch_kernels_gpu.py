@@ -560,15 +560,13 @@ def test_msm_gather_kernel_matches_plain(cuda, c, n):
             assert g.is_contiguous() and torch.equal(g, w)
 
 
-def test_halving_tree_commit_on_card_matches_host(cuda):
-    """Two sets over 2^14 points (the halving tree, five levels; the second
-    set's padding lanes dead), a point at infinity, a doubling in a bucket
-    and zero scalars, against the host MSM."""
+def _tree_points(n: int, seed: int):
+    """n affine points A + i S, one at infinity (lane 7) and one repeated
+    (lane 9 = lane 8), and n random scalars, lanes 8-10 a doubling in a
+    bucket and a zero."""
     from zkvm_tpu_torch.curves.g1 import G1Affine, G1Projective
-    from zkvm_tpu_torch.ops import msm
 
-    n = msm.PTREE_MIN_POINTS
-    rng = np.random.default_rng(31)
+    rng = np.random.default_rng(seed)
     g = G1Projective.generator()
     a = g * int(rng.integers(1, 1 << 62))
     step = g * int(rng.integers(1, 1 << 62))
@@ -583,10 +581,10 @@ def test_halving_tree_commit_on_card_matches_host(cuda):
     scalars = [Fr(sum(int(w) << (63 * k) for k, w in enumerate(row)))
                for row in words]
     scalars[8], scalars[9], scalars[10] = scalars[9], scalars[9], Fr.zero()
-    sets = [scalars, scalars[:5000]]
-    before = kernels.LAUNCHES["msm_gather"]
-    got = msm.MSMContext(points, cuda).msm_many(sets)
-    assert kernels.LAUNCHES["msm_gather"] == before + 2
+    return points, scalars
+
+
+def _assert_host_msm(points, sets, got):
     ref_points = [RG1Affine.identity() if p.infinity
                   else RG1Affine(RFp(p.x.value), RFp(p.y.value))
                   for p in points]
@@ -594,3 +592,71 @@ def test_halving_tree_commit_on_card_matches_host(cuda):
         want = ref_msm_variable_base(ref_points[:len(s)],
                                      [RFr(x.value) for x in s])
         assert point.to_affine().to_bytes() == want.to_affine().to_bytes()
+
+
+def test_halving_tree_commit_on_card_matches_host(cuda):
+    """Two sets over 2^14 points (the halving tree, five levels; the second
+    set's padding lanes dead), a point at infinity, a doubling in a bucket
+    and zero scalars, against the host MSM."""
+    from zkvm_tpu_torch.ops import msm
+
+    n = msm.PTREE_MIN_POINTS
+    points, scalars = _tree_points(n, 31)
+    sets = [scalars, scalars[:5000]]
+    before = kernels.LAUNCHES["msm_gather"]
+    got = msm.MSMContext(points, cuda).msm_many(sets)
+    assert kernels.LAUNCHES["msm_gather"] == before + 2
+    _assert_host_msm(points, sets, got)
+
+
+# a proof's commits at 2^15 and 2^17 and a 2^16 commit (four sets each), and
+# a shape past the packed key (c = 13, N > 2^17: the stable-sort key)
+@pytest.mark.parametrize("c,sets,n", [(10, 4, 33792), (11, 4, 66560),
+                                      (11, 4, 132096), (13, 2, 140288)])
+def test_msm_digits_kernel_matches_plain(cuda, c, sets, n):
+    """Pack mode's keys and, where the key is packed, unpack mode's (sid,
+    neg, perm) on the sorted keys, against the composition they replace,
+    bit for bit: random scalars below r with the edge values, a zero
+    padding tail, points at infinity."""
+    from test_torch_msm_digits import infinity, limbs_of, scalars
+
+    rng = np.random.default_rng(c * n)
+    vals = scalars(c, 1, 64, c)[0]
+    limbs = _field(lf.FR, (sets, 8, n), c + n)
+    limbs[:, :, :64] = limbs_of([vals] * sets)
+    limbs[-1, :, n - n // 7:] = 0
+    limbs, pinf = limbs.to(cuda), infinity(n, int(rng.integers(1 << 30)))
+    pinf = pinf.to(cuda)
+    before = kernels.LAUNCHES["msm_digits"]
+    keys = kernels.msm_digits(limbs, pinf, c)
+    assert kernels.LAUNCHES["msm_digits"] == before + 1
+    assert keys.is_contiguous()
+    assert torch.equal(keys, kernels.msm_digits_plain(limbs, pinf, c))
+    if not kernels.packed_key_fits(1 << (c - 1), n):
+        return
+    srt = torch.sort(keys, dim=-1).values
+    got = kernels.msm_digits(srt, unpack=True)
+    assert kernels.LAUNCHES["msm_digits"] == before + 2
+    want = kernels.msm_digits_plain(srt, unpack=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.is_contiguous() and torch.equal(g, w)
+
+
+def test_halving_tree_commit_with_msm_digits_matches_host(cuda):
+    """The commit path (`msm_many_mont`, Montgomery coefficients on the
+    card) over 2^14 points, the halving tree at c = 10: two launches of
+    msm_digits, and each commitment equal to the host MSM, with zero
+    scalars, r - 1 and scalars whose carry reaches the top window."""
+    from test_torch_msm_digits import edge_values
+    from zkvm_tpu_torch.ops import msm
+
+    n = msm.PTREE_MIN_POINTS
+    points, scalars = _tree_points(n, 37)
+    scalars[:6] = [Fr(v) for v in edge_values(10)]
+    sets = [scalars, scalars[:7000]]
+    ctx = msm.MSMContext(points, cuda)
+    mont = [lf.FR.to_mont_array([s.value for s in x], cuda) for x in sets]
+    before = kernels.LAUNCHES["msm_digits"]
+    got = ctx.msm_many_mont(mont)
+    assert kernels.LAUNCHES["msm_digits"] == before + 2
+    _assert_host_msm(points, sets, got)

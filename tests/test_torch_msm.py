@@ -96,7 +96,7 @@ def test_sort_fallback_orders_as_the_packed_key():
     dflat = d.reshape(-1, 300)
     bucket = torch.where(dflat == 0, half + 1, dflat.abs())
     bucket = torch.where(pinf[None, :], half + 1, bucket)
-    got = msm._sort_stable(bucket, (dflat < 0).to(torch.int32))
+    got = msm._sort_stable((bucket << 1) | (dflat < 0).to(torch.int32))
     assert torch.equal(got[0], sid) and torch.equal(got[1], neg)
     assert torch.equal(got[2], perm)
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels: build, bind, launch, count, and plain versions.
 
-Twelve kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
+Thirteen kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
 
   * `mont_mul`     replaces `pallas_field.mont_mul_pallas` (reads broadcast
                    and strided operands in place)
@@ -35,6 +35,11 @@ Twelve kernels from `zkvm_tpu_torch/csrc/` (CUDA C++ for sm_90a):
                    point-major matrix, y negated by the digit's sign, dead
                    lanes parked) with the first level of the halving tree
                    added on the way (`ops/msm.py`)
+  * `msm_digits`   a kernel of the port alone, with no TPU counterpart: the
+                   integer work on both sides of the MSM's bucket sort,
+                   scalar limbs to signed radix-2^c digits and their sort
+                   keys, and the sorted keys back to the (bucket, sign,
+                   point index) that `msm_gather` reads
 
 They are compiled with `nvcc` (one process per source, all started
 together) and linked into one shared library with a plain C interface on
@@ -45,8 +50,8 @@ of the sources, and bound with ctypes.
 `mont_pow` share the lazily reduced carry-flag arithmetic of
 `csrc/fq_lazy.cuh`; `hades_permute`, `ntt_stages`, `carry_fold`, `fold`,
 `quotient` and the Fr chain of `mont_pow` that of `csrc/fr_lazy.cuh` (Fr
-leaves less room: its ranges are stated there); the other kernels use
-`csrc/field.cuh`.
+leaves less room: its ranges are stated there); `msm_digits` does no field
+arithmetic; the other kernels use `csrc/field.cuh`.
 `fq_mul_chain` (one warp, a chain of dependent Fq products) and
 `empty_launch` are measuring probes, not kernels of any path: they have no
 count.
@@ -81,7 +86,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 _SOURCES = ("mont_mul.cu", "padd.cu", "window_fold.cu", "ntt.cu",
             "ntt_fold.cu", "hades.cu", "padd_ilp.cu", "field_addsub.cu",
-            "quotient.cu", "msm_gather.cu")
+            "quotient.cu", "msm_gather.cu", "msm_digits.cu")
 _HEADERS = ("common.cuh", "field.cuh", "fq_lazy.cuh", "fr_lazy.cuh")
 _FIELD_ID = {"Fr": 0, "Fq": 1}
 
@@ -89,7 +94,7 @@ _FIELD_ID = {"Fr": 0, "Fq": 1}
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "padd": 0, "window_fold": 0,
             "ntt_stages": 0, "carry_fold": 0, "fold": 0, "hades_permute": 0,
             "padd_ilp": 0, "field_addsub": 0, "quotient": 0,
-            "msm_gather": 0}
+            "msm_gather": 0, "msm_digits": 0}
 
 _lib = None
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (register counts)
@@ -167,11 +172,14 @@ def build() -> float:
     lib.zk_field_addsub.argtypes = [_I, _I, _P, _P, _P, _P, _LL, _LL, _P, _P]
     lib.zk_quotient.argtypes = [_P, _P, _P, _P, _LL, _P]
     lib.zk_msm_gather.argtypes = [_P] * 9 + [_LL, _LL, _LL, _I, _P]
+    lib.zk_msm_digits.argtypes = [_P, _P, _P, _LL, _LL, _I, _I, _I, _P]
+    lib.zk_msm_digits_unpack.argtypes = [_P] * 4 + [_LL, _I, _P]
     for fn in (lib.zk_mont_mul, lib.zk_mont_pow, lib.zk_empty_launch,
                lib.zk_padd, lib.zk_window_fold, lib.zk_ntt_pass,
                lib.zk_carry_fold, lib.zk_fold, lib.zk_hades_permute,
                lib.zk_padd_ilp, lib.zk_fq_chain, lib.zk_field_addsub,
-               lib.zk_quotient, lib.zk_msm_gather):
+               lib.zk_quotient, lib.zk_msm_gather, lib.zk_msm_digits,
+               lib.zk_msm_digits_unpack):
         fn.restype = _I
     lib.zk_error_string.argtypes = [_I]
     lib.zk_error_string.restype = ctypes.c_char_p
@@ -696,6 +704,103 @@ def msm_gather(pm, sid, neg, perm, half: int, src=None, pairs: bool = False):
                     None if rsid is None else rsid.data_ptr(), b, k, n, half,
                     _stream(dev))
     return (out, rsid) if pairs else out
+
+
+# -----------------------------------------------------------------------------
+# msm_digits
+# -----------------------------------------------------------------------------
+
+def digit_windows(c: int) -> int:
+    """Signed radix-2^c digits of a scalar: 256 bits and headroom for the
+    carry sweep."""
+    return -(-260 // c)
+
+
+def key_index_bits(n: int) -> int:
+    """Bits of a lane index in the packed sort key of n lanes."""
+    return max(n - 1, 1).bit_length()
+
+
+def packed_key_fits(half: int, n: int) -> bool:
+    """Whether (bucket, sign, index) of n lanes and `half` buckets pack into
+    one i32 key; past it (from n > 2^17 at c = 13) the key overflows and the
+    stable sort of (bucket, sign) takes over."""
+    return ((half + 1) << (key_index_bits(n) + 1)) < (1 << 31)
+
+
+def msm_digits_plain(x, pinf=None, c: int = 0, unpack: bool = False):
+    """Plain version of the msm_digits kernel: the PyTorch composition it
+    replaces.  Pack mode: `msm._signed_digit_tensors`, then each digit's
+    key (`msm._digit_keys`); unpack mode: the packed keys' three fields."""
+    if unpack:
+        ib = key_index_bits(x.shape[-1])
+        return (x >> (ib + 1), ((x >> ib) & 1) == 1,
+                (x & ((1 << ib) - 1)).to(torch.int64))
+    from . import msm  # msm imports this module
+
+    return msm._digit_keys(msm._signed_digit_tensors(x, c), pinf,
+                           1 << (c - 1))
+
+
+def msm_digits(x, pinf=None, c: int = 0, unpack: bool = False):
+    """The integer work on both sides of the MSM's bucket sort.
+
+    Pack mode: canonical scalar limbs x [S, 8, N] int32 and the points'
+    infinity flags pinf [N] bool -> one sort key a signed radix-2^c digit,
+    [S*W, N] int32 (W = `digit_windows(c)`; row s*W + w is digit w of set
+    s): the bucket |d| (half + 1 where d = 0 or the point is at infinity)
+    and the sign, with the lane index where `packed_key_fits(half, N)`, so
+    that an unstable sort orders a row by (bucket, sign, index); else
+    (bucket << 1) | sign, the key of a stable sort.  Unpack mode: packed
+    keys x [B, N] int32, each row sorted -> (sid [B, N] int32 bucket ids,
+    neg [B, N] bool signs, perm [B, N] int64 lanes), the operands of
+    `msm_gather`.  Outputs are contiguous."""
+    name = "msm_digits"
+    if x.dtype != torch.int32 or x.dim() != (2 if unpack else 3):
+        raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)}, expected int32 "
+                         f"{'[B, N]' if unpack else '[S, 8, N]'}")
+    dev = x.device
+    if not unpack:
+        s, n_limbs, n = x.shape
+        if n_limbs != FR.n_limbs:
+            raise ValueError(f"{name}: limb axis of {tuple(x.shape)} is not "
+                             f"{FR.n_limbs}")
+        if pinf is None or pinf.dtype != torch.bool or \
+                tuple(pinf.shape) != (n,):
+            raise ValueError(f"{name}: pinf must be bool [{n}]")
+        if not 1 <= c <= 24:
+            raise ValueError(f"{name}: window width {c} outside [1, 24]")
+        if pinf.device != dev:
+            raise ValueError(f"{name}: operands on {pinf.device} and {dev}")
+    if not x.is_contiguous() or not (unpack or pinf.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cpu":
+        return msm_digits_plain(x, pinf, c, unpack)
+    if unpack:
+        b, n = x.shape
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: keys must be 16-byte aligned")
+        sid = torch.empty((b, n), dtype=torch.int32, device=dev)
+        neg = torch.empty((b, n), dtype=torch.bool, device=dev)
+        perm = torch.empty((b, n), dtype=torch.int64, device=dev)
+        if b * n:
+            build()
+            with torch.cuda.device(dev):
+                _launch(name, _lib.zk_msm_digits_unpack, x.data_ptr(),
+                        sid.data_ptr(), neg.data_ptr(), perm.data_ptr(),
+                        b * n, key_index_bits(n), _stream(dev))
+        return sid, neg, perm
+    w_count = digit_windows(c)
+    keys = torch.empty((s * w_count, n), dtype=torch.int32, device=dev)
+    if s * n:
+        ib = key_index_bits(n) if packed_key_fits(1 << (c - 1), n) else 0
+        build()
+        with torch.cuda.device(dev):
+            _launch(name, _lib.zk_msm_digits, x.data_ptr(), pinf.data_ptr(),
+                    keys.data_ptr(), s, n, c, w_count, ib, _stream(dev))
+    return keys
 
 
 # -----------------------------------------------------------------------------

@@ -3,8 +3,11 @@
 Counterpart of `zkvm_tpu/ops/msm.py`.  The pipeline is the reference's,
 step for step:
 
-  1. signed radix-2^c digits [S*W, N] from canonical scalar limbs;
-  2. one sort per digit row of a packed i32 key (bucket, sign, index);
+  1. signed radix-2^c digits [S*W, N] from canonical scalar limbs, each
+     as a packed i32 key (bucket, sign, index);
+  2. one sort per digit row.  The `msm_digits` kernel does the integer
+     work on both sides of the sort: limbs to keys, and the sorted keys
+     back to (bucket, sign, index);
   3. a row gather of the point-major [N, 36] matrix by that permutation,
      negating y where the digit is negative; dead lanes (digit 0 or the
      point at infinity) are parked at the identity;
@@ -92,7 +95,7 @@ def _granule(n: int) -> int:
 def _signed_digit_tensors(limbs: torch.Tensor, c: int) -> torch.Tensor:
     """[S, 8, N] canonical int32 limbs -> signed digits [S, W, N] int32."""
     s, n_limbs, n = limbs.shape
-    w_count = -(-260 // c)  # 256 bits + headroom for the carry sweep
+    w_count = kernels.digit_windows(c)
     half = 1 << (c - 1)
     mask = (1 << c) - 1
     u = limbs.to(torch.int64) & lf.M32
@@ -191,59 +194,58 @@ def _span(name: str):
     return metrics.GLOBAL.span(f"prove/msm/{name}")
 
 
-def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
-    """Signed digits [S, W, N] -> one sort per digit row.
+def _digit_keys(d: torch.Tensor, pinf: torch.Tensor, half: int):
+    """Signed digits [S, W, N] -> one sort key a digit, [S*W, N] int32.
 
-    Returns (sid [B, N] ascending bucket ids, neg [B, N] sign flags, perm
-    [B, N] point indices); dead lanes (digit 0, the point at infinity) take
-    the sentinel bucket half + 1 and sort last.  Within a bucket the
-    positive digits come first, each sign in index order."""
+    Dead lanes (digit 0, the point at infinity) take the sentinel bucket
+    half + 1 and sort last.  Where `packed_key_fits`, (bucket, sign, index)
+    packed into one key: the keys are unique, so an unstable sort gives the
+    same order, and the sign rides along.  Else (bucket, sign) alone, for a
+    stable sort, which keeps the index order within each key."""
     sent = half + 1
     b, n = d.shape[0] * d.shape[1], d.shape[2]
     dflat = d.reshape(b, n)
     bucket = torch.where(dflat == 0, sent, dflat.abs())
     bucket = torch.where(pinf[None, :], sent, bucket)
     neg_bit = (dflat < 0).to(torch.int32)
-    if packed_key_fits(half, n):
-        return _sort_packed(bucket, neg_bit, max(n - 1, 1).bit_length())
-    return _sort_stable(bucket, neg_bit)
+    if not kernels.packed_key_fits(half, n):
+        return (bucket << 1) | neg_bit
+    idx_bits = kernels.key_index_bits(n)
+    iota = torch.arange(n, dtype=torch.int32, device=d.device)
+    return (bucket << (idx_bits + 1)) | (neg_bit << idx_bits) | iota
 
 
-def packed_key_fits(half: int, n: int) -> bool:
-    """Whether `_sort_digits` packs (bucket, sign, index) of n lanes and
-    `half` buckets into one i32 key; past it (from n > 2^17 at c = 13) the
-    key overflows and the stable sort of (bucket, sign) takes over."""
-    idx_bits = max(n - 1, 1).bit_length()
-    return ((half + 1) << (idx_bits + 1)) < (1 << 31)
+def _sort_keys(keys: torch.Tensor, half: int):
+    """One sort per key row [B, N] of `_digit_keys`.
+
+    Returns (sid [B, N] ascending bucket ids, neg [B, N] sign flags, perm
+    [B, N] point indices).  Within a bucket the positive digits come
+    first, each sign in index order."""
+    if kernels.packed_key_fits(half, keys.shape[-1]):
+        return kernels.msm_digits(torch.sort(keys, dim=-1).values,
+                                  unpack=True)
+    return _sort_stable(keys)
 
 
-def _sort_packed(bucket, neg_bit, idx_bits: int):
-    """(bucket, sign, index) packed into ONE i32 key: the keys are unique,
-    so an unstable sort gives the same order, and the sign rides along."""
-    iota = torch.arange(bucket.shape[-1], dtype=torch.int32,
-                        device=bucket.device)
-    packed = torch.sort((bucket << (idx_bits + 1)) | (neg_bit << idx_bits)
-                        | iota, dim=-1).values
-    sid = packed >> (idx_bits + 1)
-    neg = ((packed >> idx_bits) & 1) == 1
-    perm = (packed & ((1 << idx_bits) - 1)).to(torch.int64)
-    return sid, neg, perm
-
-
-def _sort_stable(bucket, neg_bit):
-    """The same order as `_sort_packed` at any lane count: a stable sort
-    of (bucket, sign) keeps the index order within each key."""
-    key, perm = torch.sort((bucket << 1) | neg_bit, dim=-1, stable=True)
+def _sort_stable(keys: torch.Tensor):
+    """The order of the packed key at any lane count: a stable sort of the
+    (bucket, sign) keys keeps the index order within each key."""
+    key, perm = torch.sort(keys, dim=-1, stable=True)
     return key >> 1, (key & 1) == 1, perm
 
 
+def _sort_digits(d: torch.Tensor, pinf: torch.Tensor, half: int):
+    """Signed digits [S, W, N] -> one sort per digit row: `_sort_keys` of
+    `_digit_keys`."""
+    return _sort_keys(_digit_keys(d, pinf, half), half)
+
+
 def _sorted_digits(c: int, pinf, limbs, stage=_span):
-    """Digits -> one packed-key sort per row: (sid, neg, perm) [B, N]."""
-    half = 1 << (c - 1)
+    """Limbs -> keys -> one sort per row: (sid, neg, perm) [B, N]."""
     with stage("signed digits"):
-        d = _signed_digit_tensors(limbs, c)
+        keys = kernels.msm_digits(limbs, pinf, c)
     with stage("sort"):
-        return _sort_digits(d, pinf, half)
+        return _sort_keys(keys, 1 << (c - 1))
 
 
 def _sorted_points(c: int, pm, pinf, limbs, stage=_span):

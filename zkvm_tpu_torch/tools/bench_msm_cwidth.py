@@ -44,12 +44,12 @@ REPS = 3
 
 def window_count(c: int) -> int:
     """W: the signed-digit windows of a 256-bit scalar at width c."""
-    return -(-260 // c)
+    return kernels.digit_windows(c)
 
 
 def sort_kind(c: int, n: int) -> str:
     """Which sort `_sort_digits` takes for n lanes at width c."""
-    return "packed" if M.packed_key_fits(1 << (c - 1), n) else "stable"
+    return "packed" if kernels.packed_key_fits(1 << (c - 1), n) else "stable"
 
 
 def width_points(c: int, pm, pinf, limbs) -> list[G1Projective]:
